@@ -9,19 +9,25 @@ Run from the repository root, with no arguments:
 2. Builds the hand-written CUDA kernels from ``trino_tpu_torch/csrc`` with
    nvcc for sm_90a (all sources in parallel).
 3. Kernel phases: each kernel (K1 group_ids, K2 seg_sum, K3 join_probe,
-   K4 expand_matches) runs on the card at the main path's shapes (TPC-H
-   SF10 scale: 60M rows with 4 and with 1.5M groups; a 15M-row build side
-   against a 60M-row probe), is held against its plain torch version on
-   the same inputs (integers exactly, float64 sums to relative 1e-12),
-   and is timed beside the plain version, one PyTorch library call that
-   computes the same function where there is one, and the least time the
-   card could take (bytes each input read once and each output written
-   once, over 3.35 TB/s of HBM).
+   K4 expand_matches, K5 range_any, K6 scatter_any) runs on the card at
+   the main path's shapes (TPC-H SF10 scale: 60M rows with 4 and with
+   1.5M groups; a 15M-row build side against a 60M-row probe; 15M probe
+   rows of 1-7 matches each, ~60M expanded positions, also with one hot
+   probe row owning 10% of them; 60M indices into 15M slots), is held
+   against its plain torch version on the same inputs (integers and
+   booleans exactly, float64 sums to relative 1e-12), and is timed
+   beside the plain version, one PyTorch library call that computes the
+   same function where there is one, and the least time the card could
+   take (bytes each input read once and each output written once, over
+   3.35 TB/s of HBM; K5 counts the out_live bytes up to each range's
+   first live position, where its scan stops).
 4. Main path: ``QueryRunner.tpch("sf1")`` and ``QueryRunner.tpch("sf10")``
-   on cuda run TPC-H Q1 and Q3 (tables resident on the card). Rows must
-   equal the exact numpy reference (``trino_tpu_torch.testing.
-   numpy_reference``). Every kernel's launch count is set to 0 before the
-   main path and must be non-zero after it.
+   on cuda run TPC-H Q1, Q3, Q18, Q4, Q17, Q21 and a full outer join
+   (tables resident on the card). Rows must equal the exact numpy
+   reference (``trino_tpu_torch.testing.numpy_reference``; Q17's one
+   DOUBLE to relative 1e-12), cold and in 3 warm runs. Every kernel's
+   launch count is set to 0 before the main path and must be non-zero
+   after it; the launches of each query's runs are printed.
 5. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -254,10 +260,138 @@ def k4_phase(torch, K, shapes, order, lo, cnt) -> dict:
     }
 
 
+def range_any_case(torch, np, dev, hot: bool):
+    """K5 inputs at SF10 shapes: 15M probe rows (orders) with 1-7 matches
+    each (lines per order), ~60M expanded positions in a bucketed
+    capacity, about half of them live. ``hot``: one probe row owns 10%
+    of the positions, all dead but its last, so its whole range is read."""
+    from trino_tpu_torch.exec import shapes
+
+    rng = np.random.default_rng(SEED + 5 + hot)
+    cnt = rng.integers(1, 8, size=ORDERS_ROWS).astype(np.int64)
+    if hot:
+        cnt[ORDERS_ROWS // 2] = int(cnt.sum()) // 9
+    total = int(cnt.sum())
+    live = np.zeros(shapes.bucket(total), dtype=np.bool_)
+    live[:total] = rng.random(total) >= 0.5
+    if hot:
+        off = int(cnt[: ORDERS_ROWS // 2].sum())
+        end = off + int(cnt[ORDERS_ROWS // 2])
+        live[off:end] = False
+        live[end - 1] = True
+    return torch.from_numpy(cnt).to(dev), torch.from_numpy(live).to(dev)
+
+
+def range_any_needed_bytes(torch, cnt, out_live) -> int:
+    """out_live bytes an early-stopping scan must read: each range up to
+    and including its first live position, all of it when none is."""
+    total = int(cnt.sum())
+    live = out_live[:total].to(torch.int64)
+    before = torch.cumsum(live, 0) - live  # live positions before j
+    rows = torch.arange(cnt.shape[0], dtype=torch.int64, device=cnt.device)
+    owner = torch.repeat_interleave(rows, cnt, output_size=total)
+    start = torch.cumsum(cnt, 0) - cnt
+    first_or_earlier = before == before[start][owner]
+    return int(first_or_earlier.sum())
+
+
+def k5_phase(torch, K, cnt, out_live) -> dict:
+    got = K.range_any(cnt, out_live)
+    want = K.range_any_plain(cnt, out_live)
+    torch.cuda.synchronize()
+    if not same(torch, got, want):
+        fail("range_any differs from the plain version")
+    n, total = cnt.shape[0], int(cnt.sum())
+    seg = out_live[:total]
+
+    def library():
+        return torch.segment_reduce(
+            seg.float(), "max", lengths=cnt, unsafe=True, initial=0
+        )
+
+    lib = library()
+    if not same(torch, lib > 0, want):
+        fail("range_any: the segment_reduce yardstick disagrees")
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.range_any(cnt, out_live)),
+        "plain_ms": timed_ms(torch, lambda: K.range_any_plain(cnt, out_live)),
+        "library_ms": timed_ms(torch, library),
+        # cnt (8 B) in and matched (1 B) out per probe row; out_live up to
+        # each range's first live position
+        "bound_ms": bound_ms(n * 9 + range_any_needed_bytes(torch, cnt, out_live)),
+        "probe_rows": n, "positions": total,
+        "out_capacity": out_live.shape[0], "matched": int(want.sum()),
+    }
+
+
+def scatter_any_case(torch, np, dev):
+    """K6 inputs at SF10 shapes: 60M indices (lineitem -> orders) into
+    15M slots, about half flagged; unflagged positions carry 0, the
+    expansion's placeholder for dead rows."""
+    rng = np.random.default_rng(SEED + 6)
+    idx = rng.integers(0, ORDERS_ROWS, size=LINEITEM_ROWS).astype(np.int64)
+    flags = rng.random(LINEITEM_ROWS) >= 0.5
+    idx[~flags] = 0
+    return torch.from_numpy(idx).to(dev), torch.from_numpy(flags).to(dev)
+
+
+def k6_phase(torch, K, idx, flags) -> dict:
+    cap = ORDERS_ROWS
+    got = K.scatter_any(idx, flags, cap)
+    want = K.scatter_any_plain(idx, flags, cap)
+    torch.cuda.synchronize()
+    if not same(torch, got, want):
+        fail("scatter_any differs from the plain version")
+    m = idx.shape[0]
+    flags8 = flags.to(torch.int8)
+
+    def library():
+        return torch.zeros(cap, dtype=torch.int8, device=idx.device).scatter_reduce_(
+            0, idx, flags8, "amax"
+        )
+
+    if not same(torch, library() > 0, want):
+        fail("scatter_any: the scatter_reduce yardstick disagrees")
+    flagged = int(flags.sum())
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.scatter_any(idx, flags, cap)),
+        "plain_ms": timed_ms(torch, lambda: K.scatter_any_plain(idx, flags, cap)),
+        "library_ms": timed_ms(torch, library),
+        # flags (1 B/position), idx (8 B) where flagged, out (1 B/slot)
+        "bound_ms": bound_ms(m + 8 * flagged + cap),
+        "positions": m, "flagged": flagged, "capacity": cap,
+        "marked": int(want.sum()),
+    }
+
+
 # ---- main path ---------------------------------------------------------------
 
 
+def rows_equal(name: str, got, want) -> bool:
+    """Exact row equality; Q17's one DOUBLE (the exact decimal sum over
+    7.0, converted to a double on both sides) to relative 1e-12."""
+    if name != "q17":
+        return got == want
+    return (
+        len(got) == len(want) == 1
+        and (got[0][0] is None) == (want[0][0] is None)
+        and (got[0][0] is None
+             or abs(got[0][0] - want[0][0]) <= 1e-12 * abs(want[0][0]))
+    )
+
+
 def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
+    queries = [
+        ("q01", QUERIES["q01"], R.q01),
+        ("q03", QUERIES["q03"], R.q03),
+        ("q18", QUERIES["q18"], R.q18),
+        ("q04", QUERIES["q04"], R.q04),
+        ("q17", QUERIES["q17"], R.q17),
+        ("q21", QUERIES["q21"], R.q21),
+        ("fj", R.FJ_SQL, R.fj),
+    ]
     results = {}
     K.reset_launches()
     for scale in ("sf1", "sf10"):
@@ -267,35 +401,37 @@ def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
             fail(f"runner for {scale} is on {runner.device}")
         data = runner.metadata.connector("tpch").data(scale)
         torch.cuda.reset_peak_memory_stats()
-        for name, ref in (("q01", R.q01), ("q03", R.q03)):
+        for name, sql, ref in queries:
             before = {k: fn.launches for k, fn in K.KERNELS.items()}
             tc = time.perf_counter()
-            rows = runner.execute(QUERIES[name]).rows
+            rows = runner.execute(sql).rows
             torch.cuda.synchronize()
             cold_ms = (time.perf_counter() - tc) * 1e3
-            per_query = {
-                k: fn.launches - before[k] for k, fn in K.KERNELS.items()
-            }
             want = ref(data)
-            if rows != want:
+            if not rows_equal(name, rows, want):
                 fail(f"{name} at {scale}: rows differ from the numpy reference"
                      f"\n got  {rows[:3]}\n want {want[:3]}")
             warm = []
             for _ in range(3):
                 tw = time.perf_counter()
-                again = runner.execute(QUERIES[name]).rows
+                again = runner.execute(sql).rows
                 torch.cuda.synchronize()
                 warm.append((time.perf_counter() - tw) * 1e3)
-                if again != want:
+                if again != rows:
                     fail(f"{name} at {scale}: a warm run's rows differ")
+            per_query = {
+                k: fn.launches - before[k] for k, fn in K.KERNELS.items()
+            }
             results[f"{name}_{scale}"] = {
                 "rows": len(rows), "cold_ms": cold_ms,
                 "warm_ms": warm, "warm_median_ms": statistics.median(warm),
-                "launches_per_run": per_query,
+                "launches_4_runs": per_query,
             }
             print(f"main path {name} {scale}: {len(rows)} rows equal the "
                   f"numpy reference; cold {cold_ms:.1f} ms, warm median "
-                  f"{statistics.median(warm):.2f} ms {per_query}", flush=True)
+                  f"{statistics.median(warm):.2f} ms (range {min(warm):.2f}-"
+                  f"{max(warm):.2f}); launches in 4 runs {per_query}",
+                  flush=True)
         results[f"{scale}_peak_bytes"] = torch.cuda.max_memory_allocated()
         results[f"{scale}_seconds"] = time.perf_counter() - t0
         del runner, data
@@ -353,16 +489,28 @@ def main() -> int:
     k3, (lo, cnt) = k3_phase(torch, K, order, sorted_key, nbl, pk, pl)
     k4 = k4_phase(torch, K, shapes, order, lo, cnt)
     del order, sorted_key, nbl, pk, pl, lo, cnt
+    cnt, out_live = range_any_case(torch, np, dev, hot=False)
+    k5 = k5_phase(torch, K, cnt, out_live)
+    cnt, out_live = range_any_case(torch, np, dev, hot=True)
+    k5_hot = k5_phase(torch, K, cnt, out_live)
+    del cnt, out_live
+    idx, flags = scatter_any_case(torch, np, dev)
+    k6 = k6_phase(torch, K, idx, flags)
+    del idx, flags
     torch.cuda.empty_cache()
     sources = {
         "group_ids": ("trino_tpu_torch/csrc/group_ids.cu",
-                      "trino_tpu/exec/kernels.py:165"),
+                      "trino_tpu/exec/kernels.py:166"),
         "seg_sum": ("trino_tpu_torch/csrc/seg_sum.cu",
                     "trino_tpu/exec/kernels.py:348"),
         "join_probe": ("trino_tpu_torch/csrc/join_probe.cu",
-                       "trino_tpu/exec/kernels.py:576"),
+                       "trino_tpu/exec/kernels.py:577"),
         "expand_matches": ("trino_tpu_torch/csrc/expand_matches.cu",
-                           "trino_tpu/exec/kernels.py:619"),
+                           "trino_tpu/exec/kernels.py:620"),
+        "range_any": ("trino_tpu_torch/csrc/range_any.cu",
+                      "trino_tpu/exec/kernels.py:489"),
+        "scatter_any": ("trino_tpu_torch/csrc/scatter_any.cu",
+                        "trino_tpu/exec/kernels.py:502"),
     }
     rows = f"{LINEITEM_ROWS / 1e6:g}M rows"
     join = f"{ORDERS_ROWS / 1e6:g}M build, {LINEITEM_ROWS / 1e6:g}M probe"
@@ -374,6 +522,14 @@ def main() -> int:
                                      dict(k2_q3f, case=f"{rows}, 1.5M groups, float64")])
     entries["join_probe"] = dict(k3, case=join)
     entries["expand_matches"] = dict(k4, case=join)
+    expand = f"{ORDERS_ROWS / 1e6:g}M probe rows of 1-7 matches"
+    entries["range_any"] = dict(
+        k5, case=f"{expand}, {k5['positions'] / 1e6:.1f}M positions",
+        cases=[dict(k5_hot, case=f"{expand} + one probe row owning 10% "
+                    f"of {k5_hot['positions'] / 1e6:.1f}M positions")])
+    entries["scatter_any"] = dict(
+        k6, case=f"{LINEITEM_ROWS / 1e6:g}M indices into "
+                 f"{ORDERS_ROWS / 1e6:g}M slots")
     for name, e in entries.items():
         print(f"kernel {name} [{e['case']}]: {e['ms']:.3f} ms, plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']} ms, bound "

@@ -130,12 +130,101 @@ def test_join_kernels(cuda, m, n, n_keys, high_bit, build_dead):
     assert torch.equal(b_d.cpu()[live], b[live])
 
 
+def _range_any_inputs(n, hot, seed):
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(1, 8, size=n).astype(np.int64)
+    if hot and n:
+        cnt[n // 2] = 3 * int(cnt.sum())  # one probe owns 3/4 of the positions
+    total = int(cnt.sum())
+    live = rng.random(total + 11) >= 0.5
+    if hot and n:
+        # dead but for the hot range's last position: the whole range is read
+        off = int(cnt[: n // 2].sum())
+        live[off: off + cnt[n // 2]] = False
+        live[off + cnt[n // 2] - 1] = True
+    return cnt, live
+
+
+@pytest.mark.parametrize("n,hot", [
+    (0, False), (1, False), (1, True), (5000, False), (5000, True),
+    (400_000, False), (400_000, True),
+])
+def test_range_any_kernel(cuda, n, hot):
+    cnt, live = _range_any_inputs(n, hot, seed=n + hot)
+    c, lv = torch.from_numpy(cnt), torch.from_numpy(live)
+    want = K.range_any(c, lv)
+    K.range_any.launches = 0
+    got = K.range_any(c.to(cuda), lv.to(cuda))
+    torch.cuda.synchronize()
+    assert K.range_any.launches == 1
+    assert torch.equal(got.cpu(), want)
+    # out_live shorter than the expansion: range ends clamp
+    short = lv[: max(lv.shape[0] // 3, 1)].contiguous()
+    assert torch.equal(K.range_any(c.to(cuda), short.to(cuda)).cpu(),
+                       K.range_any(c, short))
+
+
+@pytest.mark.parametrize("m,capacity,hot", [
+    (0, 5, False), (1, 1, False), (5000, 700, False),
+    (600_000, 150_000, False), (600_000, 150_000, True),
+])
+def test_scatter_any_kernel(cuda, m, capacity, hot):
+    rng = np.random.default_rng(m + capacity)
+    idx = rng.integers(0, capacity, size=m).astype(np.int64)
+    flags = rng.random(m) >= 0.5
+    idx[~flags] = 0  # placeholders under dead flags
+    if hot:
+        idx[: m // 2] = capacity - 1
+    i, f = torch.from_numpy(idx), torch.from_numpy(flags)
+    want = K.scatter_any(i, f, capacity)
+    K.scatter_any.launches = 0
+    got = K.scatter_any(i.to(cuda), f.to(cuda), capacity)
+    torch.cuda.synchronize()
+    assert K.scatter_any.launches == 1
+    assert torch.equal(got.cpu(), want)
+
+
 def test_tiny_queries_on_card(cuda):
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
     from trino_tpu_torch.engine import QueryRunner
+    from trino_tpu_torch.testing.statements import JOIN_STATEMENTS
 
     gpu = QueryRunner.tpch("tiny")
     cpu = QueryRunner.tpch("tiny", device="cpu")
     assert gpu.device.type == "cuda"
-    for name in ("q01", "q03"):
-        assert gpu.execute(QUERIES[name]).rows == cpu.execute(QUERIES[name]).rows
+    statements = {"q01": QUERIES["q01"], "q03": QUERIES["q03"], **JOIN_STATEMENTS}
+    for name, sql in statements.items():
+        got, want = gpu.execute(sql).rows, cpu.execute(sql).rows
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            assert len(g) == len(w), name
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    # a DOUBLE (Q17's sum / 7.0): torch on cuda divides
+                    # by a scalar as a multiply by its reciprocal, the
+                    # CPU divides: a few ulps apart
+                    assert abs(a - b) <= 1e-12 * abs(b), (name, g, w)
+                else:
+                    assert type(a) is type(b) and a == b, (name, g, w)
+
+
+def test_tiny_hash_varchar_on_card(cuda):
+    """Hash-coded VARCHAR ([hash64, row id] lanes, as SF10's c_name in
+    Q18) gives the same rows on cuda as on cpu."""
+    from trino_tpu_torch.engine import QueryRunner
+    from trino_tpu_torch.testing.numpy_reference import q18_sql
+
+    statements = [
+        q18_sql(250),
+        "select count(*) from customer where c_name in "
+        "(select c_name from customer where c_acctbal > 0)",
+        "select count(*), count(o_comment), count(c_comment) from "
+        "(select o_comment from orders where o_orderkey < 100) o "
+        "full join customer on o_comment = c_comment",
+    ]
+    gpu = QueryRunner.tpch("tiny")
+    cpu = QueryRunner.tpch("tiny", device="cpu")
+    for r in (gpu, cpu):
+        r.session.properties["varchar_hash_ndv"] = 1000
+    for sql in statements:
+        assert gpu.execute(sql).rows == cpu.execute(sql).rows, sql

@@ -294,3 +294,94 @@ def test_pack_words_matches_jax(case):
         # the liveness bit is bit 63: dead rows carry the sign bit
         assert tbits == 63 and tfold
         np.testing.assert_array_equal(_np(tw[0]) < 0, ~live)
+
+
+def _range_any_case(case, n, seed):
+    """(cnt, out_live): per-probe match counts and the expanded liveness
+    they index. ``out_live`` is longer than the total (a padded
+    expansion capacity) except in "clamped", where it is shorter."""
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(0, 8, size=n).astype(np.int64)
+    if case == "empty_ranges":
+        cnt[rng.random(n) < 0.7] = 0
+    if case == "hot" and n:
+        cnt[n // 3] = 40 * n  # one probe owns most positions
+    total = int(cnt.sum())
+    m = max(total // 2, 1) if case == "clamped" else total + 9
+    live = rng.random(m) >= 0.5
+    if case == "all_dead":
+        live[:] = False
+    if case == "hot" and n:
+        # the hot range is dead but for its last position
+        off = int(cnt[: n // 3].sum())
+        live[off: off + cnt[n // 3]] = False
+        live[off + cnt[n // 3] - 1] = True
+    return cnt, live
+
+
+RANGE_ANY_CASES = [
+    ("random", 0), ("random", 1), ("random", 4096), ("empty_ranges", 4096),
+    ("all_dead", 4096), ("hot", 4096), ("hot", 1), ("clamped", 4096),
+]
+
+
+@pytest.mark.parametrize("case,n", RANGE_ANY_CASES)
+def test_range_any_matches_jax(case, n):
+    cnt, live = _range_any_case(case, n, seed=n + len(case))
+    want = JK.range_any(jnp.asarray(cnt), jnp.asarray(live))
+    got = TK.range_any(torch.from_numpy(cnt), torch.from_numpy(live))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if case == "all_dead":
+        assert not got.any()
+    if case == "hot" and n:
+        assert bool(got[n // 3])
+
+
+def test_range_any_without_positions():
+    # the JAX range_any cannot gather from an empty out_live: the port's
+    # answer (nothing matched) is checked on its own terms
+    got = TK.range_any(
+        torch.tensor([0, 2, 1], dtype=torch.int64), torch.zeros(0, dtype=torch.bool)
+    )
+    np.testing.assert_array_equal(got.numpy(), np.zeros(3, dtype=bool))
+
+
+def _scatter_any_case(case, m, capacity, seed):
+    """(idx, flags): flagged indices into [0, capacity); unflagged
+    positions carry clamped placeholders, as dead expansion rows do."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, max(capacity, 1), size=m).astype(np.int64)
+    flags = rng.random(m) >= 0.5
+    if case == "dead_tail":
+        flags[m // 2:] = False
+        idx[m // 2:] = 0  # K4's placeholder for dead positions
+    if case == "all_dead":
+        flags[:] = False
+    if case == "hot":
+        idx[: m // 2] = capacity // 2
+    return idx, flags
+
+
+SCATTER_ANY_CASES = [
+    ("random", 1, 1), ("random", 4096, 1000), ("random", 4096, 9000),
+    ("dead_tail", 4096, 700), ("all_dead", 4096, 700), ("hot", 4096, 700),
+]
+
+
+@pytest.mark.parametrize("case,m,capacity", SCATTER_ANY_CASES)
+def test_scatter_any_matches_jax(case, m, capacity):
+    idx, flags = _scatter_any_case(case, m, capacity, seed=m + capacity)
+    want = JK.scatter_any(jnp.asarray(idx), jnp.asarray(flags), capacity)
+    got = TK.scatter_any(torch.from_numpy(idx), torch.from_numpy(flags), capacity)
+    assert got.dtype == torch.bool and got.shape == (capacity,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_scatter_any_without_positions():
+    # the JAX scatter_any cannot probe an empty index array: the port's
+    # answer (no slot marked) is checked on its own terms
+    got = TK.scatter_any(
+        torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.bool), 5
+    )
+    np.testing.assert_array_equal(got.numpy(), np.zeros(5, dtype=bool))

@@ -1,6 +1,6 @@
 // K4 expand_matches: expand per-probe match ranges into output pairs.
 //
-// Replaces: trino_tpu/exec/kernels.py:expand_matches (:619). Output
+// Replaces: trino_tpu/exec/kernels.py:expand_matches (:620). Output
 // position j < total belongs to the probe row whose range covers it;
 // probe_idx[j] is that row and build_idx[j] = order[lo + (j - offset)].
 // out_live[j] = j < total. Positions past total are dead; their indices

@@ -1,6 +1,6 @@
 // K3 join_probe: per-probe match range in the key-sorted build side.
 //
-// Replaces: trino_tpu/exec/kernels.py:join_ranges (:576), the part after
+// Replaces: trino_tpu/exec/kernels.py:join_ranges (:577), the part after
 // the build sort: lo = left bound and hi = right bound of each probe key
 // among the sorted build keys, both clamped to the live prefix of
 // n_build_live rows, and cnt = hi - lo for live probe rows, 0 for dead

@@ -2,7 +2,7 @@
 ``trino_tpu/exec/kernels.py``.
 
 Everything is a whole-column computation on tensors of the executor's
-device. Four functions have hand-written CUDA kernels (``csrc/``), each
+device. Six functions have hand-written CUDA kernels (``csrc/``), each
 beside its plain torch version:
 
 - ``group_ids`` (K1): dense group ids, the inverse permutation and the
@@ -10,7 +10,11 @@ beside its plain torch version:
 - ``seg_sum`` (K2): per-group sums over group-sorted values, the core of
   ``seg_sum_ranges``;
 - ``join_probe`` (K3): per-probe match ranges of ``join_ranges``;
-- ``expand_matches`` (K4): match expansion into output pairs.
+- ``expand_matches`` (K4): match expansion into output pairs;
+- ``range_any`` (K5): per-probe "any live expanded match" (semi joins,
+  the probe-unmatched rows of outer joins);
+- ``scatter_any`` (K6): per-build-row "any live match" (the
+  build-unmatched rows of full outer joins).
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (and adds one to its ``launches`` count)
@@ -57,6 +61,10 @@ __all__ = [
     "join_probe_plain",
     "expand_matches",
     "expand_matches_plain",
+    "range_any",
+    "range_any_plain",
+    "scatter_any",
+    "scatter_any_plain",
     "count_true",
     "blocked_sum",
 ]
@@ -625,12 +633,103 @@ def expand_matches(order, lo, cnt, out_capacity: int):
 
 expand_matches.launches = 0
 
+
+# ---- join-side match marks ---------------------------------------------------
+
+
+def range_any_plain(cnt: torch.Tensor, out_live: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K5 (port of ``kernels.py:range_any``):
+    ``matched[p] = any(out_live[off[p] .. off[p] + cnt[p]))`` where
+    ``off`` is the exclusive prefix sum of ``cnt``, read as a difference
+    of the inclusive prefix count of ``out_live``. Both prefix sums are
+    int64 (the JAX package's int32 count would wrap beyond 2^31
+    expanded rows); range ends are clamped to ``out_live``'s length."""
+    m = out_live.shape[0]
+    if m == 0:
+        return torch.zeros(cnt.shape, dtype=torch.bool, device=cnt.device)
+    offsets = torch.cumsum(cnt, 0)
+    c = torch.cumsum(out_live.to(I64), 0)
+    hi = _range_gather(c, torch.clamp(offsets, max=m))
+    lo = _range_gather(c, torch.clamp(offsets - cnt, max=m))
+    return (hi - lo) > 0
+
+
+def _range_gather(cs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """cs[idx - 1], 0 for idx == 0 (prefix-sum boundary read)."""
+    at = torch.clamp(idx - 1, 0, max(cs.shape[0] - 1, 0))
+    return torch.where(idx > 0, cs[at], torch.zeros_like(idx))
+
+
+def range_any(cnt: torch.Tensor, out_live: torch.Tensor) -> torch.Tensor:
+    """Per-probe "any live expanded output in my range" over the
+    expansion that ``cnt`` produced (port of ``kernels.py:range_any``).
+    K5 wrapper: plain version on the CPU, CUDA kernel
+    (``csrc/range_any.cu``) on the card; the exclusive prefix sum of
+    ``cnt`` is a torch cumsum either way, as for K4."""
+    if _on_cpu(cnt, out_live):
+        return range_any_plain(cnt, out_live)
+    n, m = cnt.shape[0], out_live.shape[0]
+    _check("range_any.cnt", cnt, I64, n)
+    _check("range_any.out_live", out_live, torch.bool, m)
+    dev = cnt.device
+    offsets = torch.cumsum(cnt, 0) - cnt
+    matched = torch.empty(n, dtype=torch.bool, device=dev)
+    # ranges never overlap, so at most m // RANGE_ANY_SHORT + 1 of them
+    # are longer than the per-thread scan
+    long_cap = max(min(n, m // RANGE_ANY_SHORT + 1), 1)
+    long_rows = torch.empty(long_cap, dtype=I64, device=dev)
+    n_long = torch.zeros(1, dtype=I64, device=dev)
+    native.call(
+        "range_any", "range_any_launch",
+        cnt, offsets, n, out_live, m, RANGE_ANY_SHORT, matched, long_rows,
+        long_cap, n_long,
+    )
+    range_any.launches += 1
+    return matched
+
+
+range_any.launches = 0
+#: range length one K5 thread scans; a probe row whose range is longer
+#: and whose head is dead goes to the kernel's block-wide pass
+RANGE_ANY_SHORT = 64
+
+
+def scatter_any_plain(idx: torch.Tensor, flags: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Plain torch version of K6 (port of ``kernels.py:scatter_any``):
+    ``out[b] = any(flags[j] for idx[j] == b)`` for b in [0, capacity).
+    Indices under a false flag, and indices outside [0, capacity), mark
+    nothing (dead expansion rows carry clamped placeholders)."""
+    out = torch.zeros(capacity, dtype=torch.bool, device=idx.device)
+    hit = flags & (idx >= 0) & (idx < capacity)
+    out[idx[hit]] = True
+    return out
+
+
+def scatter_any(idx: torch.Tensor, flags: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Per-slot "any flagged index lands here" for unsorted ``idx``
+    (port of ``kernels.py:scatter_any``). K6 wrapper: plain version on
+    the CPU, CUDA kernel (``csrc/scatter_any.cu``) on the card."""
+    if _on_cpu(idx, flags):
+        return scatter_any_plain(idx, flags, capacity)
+    m = idx.shape[0]
+    _check("scatter_any.idx", idx, I64, m)
+    _check("scatter_any.flags", flags, torch.bool, m)
+    out = torch.zeros(capacity, dtype=torch.bool, device=idx.device)
+    native.call("scatter_any", "scatter_any_launch", idx, flags, m, capacity, out)
+    scatter_any.launches += 1
+    return out
+
+
+scatter_any.launches = 0
+
 #: the wrappers whose kernels the main path must launch
 KERNELS = {
     "group_ids": group_ids,
     "seg_sum": seg_sum,
     "join_probe": join_probe,
     "expand_matches": expand_matches,
+    "range_any": range_any,
+    "scatter_any": scatter_any,
 }
 
 

@@ -1,15 +1,19 @@
 """Single-fragment plan execution over device pages — the port of
-``trino_tpu/exec/local.py`` for the TPC-H Q1/Q3 path.
+``trino_tpu/exec/local.py`` for the TPC-H path that needs no string
+predicates and no cross join.
 
 Each plan node consumes whole device Pages and produces one. Host syncs
 happen only at capacity decisions (aggregate overflow flags, join
 fan-out, live-row counts), as in the JAX package. Implemented nodes:
-TableScan, the fused Filter/Project/Aggregate/Sort/TopN/Limit chains,
-inner equi-Join (with dynamic filtering and residual filters), Exchange,
-Values and Output. Every other node type raises NotImplementedError
-naming it. PyTorch runs eagerly, so there is no jit cache and no
-program catalog; the learned aggregate capacities and filter
-selectivities are kept per executor as in the JAX package.
+TableScan (VARCHAR dictionary- or hash-coded), the fused
+Filter/Project/Aggregate/Sort/TopN/Limit chains, inner, LEFT, RIGHT and
+FULL equi-Join (dynamic filtering for inner joins, residual filters),
+SemiJoin (IN, NOT IN, EXISTS and NOT EXISTS, with and without a
+correlated residual filter, IN with three-valued NULL semantics),
+Exchange, Values and Output. Every other node type raises
+NotImplementedError naming it. PyTorch runs eagerly, so there is no jit
+cache and no program catalog; the learned aggregate capacities and
+filter selectivities are kept per executor as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from trino_tpu_torch.expr.compiler import ColumnLayout, compile_expr
 from trino_tpu_torch.expr.ir import Call, Cast, InputRef, RowExpression
 from trino_tpu_torch.metadata import Metadata, Session
 from trino_tpu_torch.page import (
-    Column, Page, StringDictionary, pad_capacity, unify_dictionaries,
+    Column, HashCollision, HashStringPool, Page, StringDictionary,
+    pad_capacity, unify_dictionaries,
 )
 from trino_tpu_torch.plan import nodes as P
 
@@ -34,12 +39,39 @@ __all__ = ["LocalExecutor"]
 I64 = torch.int64
 
 
-def _scan_column(t, raw, capacity, device) -> Column:
+def _hash_varchar_column(t, values, valid, capacity, device) -> Column:
+    """A hash-coded varchar column: [hash64, source_row_id] lanes and a
+    host string pool (one hash pass and a one-time injectivity proof, no
+    sorted-dictionary build). On a hash collision, dictionary coding."""
+    pool = HashStringPool(values)
+    try:
+        pool.verify_injective()
+    except HashCollision:
+        return Column.from_numpy(
+            t, values, valid=valid, capacity=capacity, device=device
+        )
+    n = len(values)
+    data = np.zeros((capacity, 2), dtype=np.int64)
+    data[:n, 0] = pool.hashes()
+    data[:n, 1] = np.arange(n)
+    col_valid = None
+    if valid is not None:
+        v = np.zeros(capacity, dtype=np.bool_)
+        v[:n] = valid
+        col_valid = torch.from_numpy(v).to(device)
+    return Column(t, torch.from_numpy(data).to(device), col_valid, None, pool)
+
+
+def _scan_column(t, raw, capacity, device, hashed: bool = False) -> Column:
     """One scanned connector value -> device Column. ``raw`` is either a
     host array or a (values, valid) tuple."""
     valid = None
     if isinstance(raw, tuple):
         raw, valid = raw
+    if hashed:
+        return _hash_varchar_column(
+            t, np.asarray(raw, dtype=object), valid, capacity, device
+        )
     return Column.from_numpy(
         t, raw, valid=valid, capacity=capacity, device=device
     )
@@ -182,6 +214,10 @@ class LocalExecutor:
             dicts={n: c.dictionary for n, c in zip(page.names, page.columns)},
             capacity=page.capacity,
             device=self.device,
+            pools={
+                n: c.hash_pool for n, c in zip(page.names, page.columns)
+                if c.hash_pool is not None
+            },
         )
         fn, out_layout = stage.build_chain(chain, in_layout, caps)
         env, mask, flags = fn(self._env(page), page.mask)
@@ -191,7 +227,7 @@ class LocalExecutor:
         cols = [
             Column(
                 out_layout.types[s], env[s][0], env[s][1],
-                out_layout.dicts.get(s),
+                out_layout.dicts.get(s), out_layout.pools.get(s),
             )
             for s in out_layout.names
         ]
@@ -222,8 +258,6 @@ class LocalExecutor:
     def _TableScan(self, node: P.TableScan) -> Page:
         if node.split is not None:
             raise NotImplementedError("_TableScan: split scans")
-        if node.hash_varchar:
-            raise NotImplementedError("_TableScan: hash-coded varchar")
         connector = self.metadata.connector(node.catalog)
         if node.domains and node.assignments and getattr(
             connector, "supports_domains", False
@@ -235,8 +269,16 @@ class LocalExecutor:
             cache = self._scan_cache.setdefault(
                 (node.catalog, node.schema, node.table), {}
             )
+        hashed_syms = set(node.hash_varchar or [])
+
+        # hash-coded and dictionary-coded variants of a column cache
+        # under distinct keys (a symbol's encoding is plan-dependent)
+        def ckey(sym, cname):
+            return f"#hash:{cname}" if sym in hashed_syms else cname
+
         missing = [
-            (s, c) for s, c in node.assignments.items() if c not in cache
+            (s, c) for s, c in node.assignments.items()
+            if ckey(s, c) not in cache
         ]
         if missing or "" not in cache:
             cols = connector.scan(
@@ -253,12 +295,13 @@ class LocalExecutor:
                 mask[:n] = True
                 cache[""] = mask
             for sym, cname in missing:
-                cache[cname] = _scan_column(
-                    node.outputs[sym], cols[cname], cap, self.device
+                cache[ckey(sym, cname)] = _scan_column(
+                    node.outputs[sym], cols[cname], cap, self.device,
+                    hashed=sym in hashed_syms,
                 )
             cache["#rows"] = n
         names = list(node.assignments)
-        columns = [cache[c] for c in node.assignments.values()]
+        columns = [cache[ckey(s, c)] for s, c in node.assignments.items()]
         return Page(
             names, columns, cache[""], known_rows=cache["#rows"], packed=True,
         )
@@ -332,7 +375,7 @@ class LocalExecutor:
         cols = [
             Column(
                 c.type, c.data[perm], None if c.valid is None else c.valid[perm],
-                c.dictionary,
+                c.dictionary, c.hash_pool,
             )
             for c in page.columns
         ]
@@ -351,7 +394,7 @@ class LocalExecutor:
                 filter=node.filter,
                 df_range_keep=None, df_keep_frac=None,
             )
-        if node.kind != "inner" or not node.criteria:
+        if node.kind not in ("inner", "left", "full") or not node.criteria:
             raise NotImplementedError(
                 f"_Join: {node.kind} join"
                 + ("" if node.criteria else " without equi-criteria")
@@ -361,31 +404,45 @@ class LocalExecutor:
         return self._equi_join(node, left, right)
 
     def _unify_join_dicts(self, probe: Page, build: Page, criteria):
-        """Remap VARCHAR key pairs onto shared dictionaries."""
+        """Remap VARCHAR key pairs onto shared dictionaries. Hash-coded
+        pairs need no remap (hash codes are global) but must pass the
+        cross-pool injectivity proof."""
         for lsym, rsym in criteria:
             pc, bc = probe.column(lsym), build.column(rsym)
+            if pc.hash_pool is not None and bc.hash_pool is not None:
+                pc.hash_pool.verify_joinable(bc.hash_pool)
+                continue
+            if pc.hash_pool is not None or bc.hash_pool is not None:
+                raise NotImplementedError(
+                    "join between hash-coded and dictionary-coded varchar "
+                    "(the planner co-encodes join pairs)"
+                )
             if pc.dictionary is not None or bc.dictionary is not None:
                 pc2, bc2 = unify_dictionaries(pc, bc)
                 probe.columns[probe.names.index(lsym)] = pc2
                 build.columns[build.names.index(rsym)] = bc2
 
     @staticmethod
-    def _join_keys(penv, benv, criteria):
+    def _join_keys(probe: Page, build: Page, criteria):
         """Combined u64 keys (in int64) for probe/build sides.
 
         Single fixed-width key -> exact; multi-column (including
         two-limb decimal keys) -> hash-combined and ``verify`` is True
-        (matches re-checked after expansion)."""
+        (matches re-checked after expansion). A hash-coded varchar key
+        contributes its hash lane only (the id lane is row identity)."""
         pv = bv = None
         p_parts: list = []
         b_parts: list = []
         for l, r in criteria:
-            pd, pvd = penv[l]
-            bd, bvd = benv[r]
-            pv = _and_mask(pv, pvd)
-            bv = _and_mask(bv, bvd)
-            p_parts.extend(K.limb_parts(pd))
-            b_parts.extend(K.limb_parts(bd))
+            pc, bc = probe.column(l), build.column(r)
+            pv = _and_mask(pv, pc.valid)
+            bv = _and_mask(bv, bc.valid)
+            if pc.hash_pool is not None:
+                p_parts.append(pc.data[:, 0])
+                b_parts.append(bc.data[:, 0])
+            else:
+                p_parts.extend(K.limb_parts(pc.data))
+                b_parts.extend(K.limb_parts(bc.data))
         if len(p_parts) == 1:
             pk, _ = K.normalize_key(p_parts[0], None)
             bk, _ = K.normalize_key(b_parts[0], None)
@@ -453,19 +510,38 @@ class LocalExecutor:
         )
         return self._compact(filtered)
 
+    def _join_count(self, criteria, probe: Page, build: Page):
+        """Join phase A: build sort, per-probe match ranges and the one
+        host sync that picks the output capacity (the build-side
+        barrier). Returns (order, lo, cnt, total, pairs, verify)."""
+        pk, bk, pv, bv, pairs, verify = self._join_keys(probe, build, criteria)
+        probe_live = probe.mask if pv is None else (probe.mask & pv)
+        build_live = build.mask if bv is None else (build.mask & bv)
+        order, lo, cnt = K.join_ranges(bk, build_live, pk, probe_live)
+        total = int(K.blocked_sum(cnt))
+        return order, lo, cnt, total, pairs, verify
+
+    @staticmethod
+    def _expand_verified(order, lo, cnt, out_cap, pairs, verify):
+        """Join phase B's expansion: (probe_idx, build_idx, out_live),
+        with hash-combined keys re-checked part by part."""
+        probe_idx, build_idx, out_live = K.expand_matches(
+            order, lo, cnt, out_cap
+        )
+        if verify:
+            for pd, bd in pairs:
+                pb, _ = K.normalize_key(pd, None)
+                bb, _ = K.normalize_key(bd, None)
+                out_live = out_live & (pb[probe_idx] == bb[build_idx])
+        return probe_idx, build_idx, out_live
+
     def _equi_join(self, node: P.Join, probe: Page, build: Page) -> Page:
         self._unify_join_dicts(probe, build, node.criteria)
         probe = self._dynamic_filter(node, probe, build)
         penv, benv = self._env(probe), self._env(build)
-        pk, bk, pv, bv, pairs, verify = self._join_keys(
-            penv, benv, node.criteria
+        order, lo, cnt, total, pairs, verify = self._join_count(
+            node.criteria, probe, build
         )
-        probe_live = probe.mask if pv is None else (probe.mask & pv)
-        build_live = build.mask if bv is None else (build.mask & bv)
-        # phase A: build sort + per-probe ranges + the one host sync
-        # that picks the output capacity (the build-side barrier)
-        order, lo, cnt = K.join_ranges(bk, build_live, pk, probe_live)
-        total = int(K.blocked_sum(cnt))
         out_cap = shapes.bucket(max(total, 1))
         out_row = sum(
             (2 if (probe if s in probe.names else build)
@@ -480,43 +556,246 @@ class LocalExecutor:
         ctx.reserve(working_set)
         ctx.free(working_set)
         # phase B: expansion, verification, gathers, residual filter
-        probe_idx, build_idx, out_live = K.expand_matches(
-            order, lo, cnt, out_cap
+        probe_idx, build_idx, out_live = self._expand_verified(
+            order, lo, cnt, out_cap, pairs, verify
         )
-        if verify:
-            for pd, bd in pairs:
-                pb, _ = K.normalize_key(pd, None)
-                bb, _ = K.normalize_key(bd, None)
-                out_live = out_live & (pb[probe_idx] == bb[build_idx])
-        env2, names, cols_meta = {}, [], []
+        probe_names = set(probe.names)
+        inner, metas = {}, []
         for sym in node.outputs:
-            from_probe = sym in probe.names
+            from_probe = sym in probe_names
             c = (probe if from_probe else build).column(sym)
             idx = probe_idx if from_probe else build_idx
-            env2[sym] = (c.data[idx], None if c.valid is None else c.valid[idx])
-            names.append(sym)
-            cols_meta.append(c)
+            inner[sym] = (c.data[idx], None if c.valid is None else c.valid[idx])
+            metas.append((sym, from_probe, c))
         if node.filter is not None:
-            filter_c = compile_expr(node.filter, _pair_layout(probe, build, self.device))
-            fenv = dict(env2)
-            for sym in _expr_symbols(node.filter):
-                if sym not in fenv:
-                    from_probe = sym in probe.names
-                    d, v = (penv if from_probe else benv)[sym]
-                    idx = probe_idx if from_probe else build_idx
-                    fenv[sym] = (d[idx], None if v is None else v[idx])
+            filter_c = compile_expr(
+                node.filter, _pair_layout(probe, build, self.device)
+            )
+            fenv = _gather_pair_env(
+                penv, benv, probe_names, sorted(_expr_symbols(node.filter)),
+                probe_idx, build_idx, base=inner,
+            )
             fd, fv = filter_c.fn(fenv)
             out_live = out_live & (fd if fv is None else (fd & fv))
+        # outer joins: unmatched rows follow as full-size sections with
+        # NULLs for the far side (no data-dependent capacity, no sync)
+        sections = {sym: [inner[sym]] for sym, _, _ in metas}
+        masks = [out_live]
+        if node.kind in ("left", "full"):
+            matched = K.range_any(cnt, out_live)
+            for sym, from_probe, c in metas:
+                sections[sym].append(
+                    penv[sym] if from_probe
+                    else _null_section(c.data, probe.capacity)
+                )
+            masks.append(probe.mask & ~matched)
+        if node.kind == "full":
+            bmatched = K.scatter_any(build_idx, out_live, build.capacity)
+            for sym, from_probe, c in metas:
+                sections[sym].append(
+                    _null_section(c.data, build.capacity) if from_probe
+                    else benv[sym]
+                )
+            masks.append(build.mask & ~bmatched)
         cols = [
-            Column(c.type, *env2[s], c.dictionary)
-            for s, c in zip(names, cols_meta)
+            Column(
+                c.type, *_concat_sections(sections[sym]), c.dictionary,
+                c.hash_pool,
+            )
+            for sym, _, c in metas
         ]
-        out = Page(names, cols, out_live)
-        if node.filter is None and len(node.criteria) == 1:
+        mask = masks[0] if len(masks) == 1 else torch.cat(masks)
+        out = Page([sym for sym, _, _ in metas], cols, mask)
+        if node.kind == "inner" and node.filter is None and len(node.criteria) == 1:
             # exact single-key expansion emits matches as a dense prefix
             out.known_rows = total
             out.packed = True
         return out
+
+    # ---- semi join -------------------------------------------------------
+
+    def _SemiJoin(self, node: P.SemiJoin) -> Page:
+        from trino_tpu_torch import session_properties as SP
+
+        if int(SP.get(self.session, "hbm_budget_bytes")):
+            raise NotImplementedError(
+                "_SemiJoin: the streamed semi join under hbm_budget_bytes"
+            )
+        source = self.execute(node.source)
+        filt = self._compact(self.execute(node.filter_source))
+        return self._semi_join_pages(node, source, filt)
+
+    def _semi_join_pages(self, node: P.SemiJoin, source: Page, filt: Page) -> Page:
+        self._unify_join_dicts(source, filt, node.keys)
+        pv = bv = None
+        for lsym, rsym in node.keys:
+            pv = _and_mask(pv, source.column(lsym).valid)
+            bv = _and_mask(bv, filt.column(rsym).valid)
+        if len(node.keys) > 1 or node.filter is not None:
+            # semiB: expand, verify, residual filter, then K5 per probe
+            order, lo, cnt, total, pairs, verify = self._join_count(
+                node.keys, source, filt
+            )
+            out_cap = shapes.bucket(max(total, 1))
+            probe_idx, build_idx, out_live = self._expand_verified(
+                order, lo, cnt, out_cap, pairs, verify
+            )
+            if node.filter is not None:
+                filter_c = compile_expr(
+                    node.filter, _pair_layout(source, filt, self.device)
+                )
+                fenv = _gather_pair_env(
+                    self._env(source), self._env(filt), set(source.names),
+                    sorted(_expr_symbols(node.filter)), probe_idx, build_idx,
+                )
+                fd, fv = filter_c.fn(fenv)
+                out_live = out_live & (fd if fv is None else (fd & fv))
+            matched = K.range_any(cnt, out_live)
+        else:
+            # semiA: single exact key, no filter: K3's counts suffice
+            pk, bk, pv2, bv2, _, _ = self._join_keys(source, filt, node.keys)
+            probe_live = source.mask if pv2 is None else (source.mask & pv2)
+            build_live = filt.mask if bv2 is None else (filt.mask & bv2)
+            _, _, cnt = K.join_ranges(bk, build_live, pk, probe_live)
+            matched = cnt > 0
+        valid = None
+        if node.null_aware and filt.num_rows() == 0:
+            # x IN (empty) is FALSE, even for NULL x (and NOT IN TRUE):
+            # the 3VL valid mask must not apply over an empty build side
+            pass
+        elif node.null_aware:
+            # IN 3VL: a NULL probe key with a nonempty (per-probe) set, or
+            # no match while the set holds NULLs, is NULL. EXISTS is
+            # two-valued.
+            build_null_for = self._in_build_nulls(node, source, filt, bv)
+            if pv is not None or build_null_for is not None:
+                valid = torch.ones_like(matched)
+                if build_null_for is not None:
+                    valid = valid & (matched | ~build_null_for)
+                if pv is not None:
+                    if node.filter is None:
+                        # the set is the whole (nonempty) build side
+                        valid = valid & pv
+                    else:
+                        # a NULL probe key is FALSE, not NULL, when its
+                        # correlated set filters down to empty
+                        nonempty = self._correlated_nonempty(
+                            node, source, filt, pv
+                        )
+                        valid = valid & (pv | ~nonempty)
+        return Page(
+            list(source.names) + [node.match_symbol],
+            list(source.columns) + [Column(T.BOOLEAN, matched, valid, None)],
+            source.mask, known_rows=source.known_rows, packed=source.packed,
+        )
+
+    def _in_build_nulls(self, node: P.SemiJoin, source: Page, filt: Page, bv):
+        """Per-probe "the build side contributed a NULL key" vector for
+        IN 3VL, or None when no NULL keys exist. With a correlated
+        residual filter only NULL-key build rows that pass the filter
+        against that probe row count."""
+        if bv is None:
+            return None
+        null_rows = torch.nonzero(filt.mask & ~bv).reshape(-1).tolist()
+        if not null_rows:
+            return None
+        cap = source.capacity
+        if node.filter is None:
+            return torch.ones(cap, dtype=torch.bool, device=self.device)
+        any_null = torch.zeros(cap, dtype=torch.bool, device=self.device)
+        probe_idx = torch.arange(cap, dtype=I64, device=self.device)
+        for r in null_rows:
+            build_idx = torch.full((cap,), r, dtype=I64, device=self.device)
+            pair = _gather_pair_page(
+                source, filt, probe_idx, build_idx, source.mask
+            )
+            fd, fv = self._eval(pair, node.filter)
+            any_null = any_null | (fd if fv is None else (fd & fv))
+        return any_null
+
+    def _correlated_nonempty(self, node: P.SemiJoin, source: Page, filt: Page, pv):
+        """Per-probe "some live build row passes the residual filter"
+        vector: a correlated IN's per-probe set is empty when none does.
+        Only NULL-key probe rows need it, so loop over those (usually
+        few), evaluating the filter against the whole build page."""
+        nonempty = torch.zeros(
+            source.capacity, dtype=torch.bool, device=self.device
+        )
+        need = torch.nonzero(source.mask & ~pv).reshape(-1).tolist()
+        build_idx = torch.arange(filt.capacity, dtype=I64, device=self.device)
+        for i in need:
+            probe_idx = torch.full(
+                (filt.capacity,), i, dtype=I64, device=self.device
+            )
+            pair = _gather_pair_page(
+                source, filt, probe_idx, build_idx, filt.mask
+            )
+            fd, fv = self._eval(pair, node.filter)
+            passes = fd if fv is None else (fd & fv)
+            nonempty[i] = bool((passes & filt.mask).any())
+        return nonempty
+
+    def _eval(self, page: Page, expr: RowExpression):
+        """Evaluate one expression over a page; (data, valid) broadcast
+        to the page capacity."""
+        data, valid = compile_expr(expr, self._layout(page)).fn(self._env(page))
+        cap = page.capacity
+        if data.dim() == 0:
+            data = data.expand(cap)
+        if valid is not None and valid.dim() == 0:
+            valid = valid.expand(cap)
+        return data, valid
+
+
+def _gather_pair_page(probe: Page, build: Page, probe_idx, build_idx, live) -> Page:
+    """The (probe row, build row) pairs at the given indices as one page."""
+    names, cols = [], []
+    for page, idx in ((probe, probe_idx), (build, build_idx)):
+        for n, c in zip(page.names, page.columns):
+            names.append(n)
+            cols.append(Column(
+                c.type, c.data[idx],
+                None if c.valid is None else c.valid[idx], c.dictionary,
+                c.hash_pool,
+            ))
+    return Page(names, cols, live)
+
+
+def _gather_pair_env(penv, benv, probe_names, syms, probe_idx, build_idx, base=None):
+    """Expanded-pair environment for the given symbols."""
+    fenv = dict(base or {})
+    for sym in syms:
+        if sym not in fenv:
+            from_probe = sym in probe_names
+            d, v = (penv if from_probe else benv)[sym]
+            idx = probe_idx if from_probe else build_idx
+            fenv[sym] = (d[idx], None if v is None else v[idx])
+    return fenv
+
+
+def _null_section(like: torch.Tensor, rows: int):
+    """An all-NULL (data, valid) section of ``rows`` rows, keeping the
+    trailing lanes of ``like`` (two-limb decimals stay [rows, 2])."""
+    return (
+        torch.zeros((rows,) + tuple(like.shape[1:]), dtype=like.dtype,
+                    device=like.device),
+        torch.zeros(rows, dtype=torch.bool, device=like.device),
+    )
+
+
+def _concat_sections(parts):
+    """Concatenate (data, valid|None) sections; None = all-valid."""
+    if len(parts) == 1:
+        return parts[0]
+    data = torch.cat([d for d, _ in parts])
+    if all(v is None for _, v in parts):
+        return data, None
+    valids = [
+        torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
+        if v is None else v
+        for d, v in parts
+    ]
+    return data, torch.cat(valids)
 
 
 def _page_dev_bytes(page: Page) -> int:

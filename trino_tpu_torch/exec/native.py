@@ -32,6 +32,8 @@ SOURCES = {
     "seg_sum": "seg_sum.cu",
     "join_probe": "join_probe.cu",
     "expand_matches": "expand_matches.cu",
+    "range_any": "range_any.cu",
+    "scatter_any": "scatter_any.cu",
 }
 
 NVCC_FLAGS = [

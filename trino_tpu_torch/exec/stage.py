@@ -16,7 +16,7 @@ DISTINCT aggregates, sketches and variance are not ported yet.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace as dc_replace
+from dataclasses import dataclass, field, replace as dc_replace
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from trino_tpu_torch.exec import kernels as K
 from trino_tpu_torch.exec import shapes
 from trino_tpu_torch.exec.aggregates import compute_aggregate
 from trino_tpu_torch.expr.compiler import ColumnLayout, compile_expr
+from trino_tpu_torch.expr.ir import InputRef
 from trino_tpu_torch.page import StringDictionary, pad_capacity
 from trino_tpu_torch.plan import nodes as P
 
@@ -44,6 +45,8 @@ class ChainLayout:
     dicts: dict[str, StringDictionary | None]
     capacity: int
     device: torch.device | str = "cpu"
+    #: hash-coded varchar pools by symbol (data = [cap, 2] hash + id)
+    pools: dict = field(default_factory=dict)
 
     def expr_layout(self) -> ColumnLayout:
         return ColumnLayout(
@@ -182,6 +185,11 @@ def _project_step(nd: P.Project, layout: ChainLayout):
         dicts={s: c.dictionary for s, c in compiled.items()},
         capacity=cap,
         device=layout.device,
+        pools={
+            s: layout.pools[e.name]
+            for s, e in nd.assignments.items()
+            if isinstance(e, InputRef) and e.name in layout.pools
+        },
     )
 
     def step(env, mask, flags):
@@ -226,6 +234,7 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
         },
         capacity=out_cap,
         device=dev,
+        pools={s: layout.pools[s] for s in group_keys if s in layout.pools},
     )
 
     key_ranges = nd.key_ranges or {}
@@ -241,6 +250,12 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
             width_list = []
             for s in group_keys:
                 data, valid = env[s]
+                if s in layout.pools:
+                    # hash-coded varchar: the hash lane is the key (the
+                    # id lane is row identity, not value identity)
+                    shifted.append((data[:, 0], valid))
+                    width_list.append(64)
+                    continue
                 shifted.append(_shift_key(data, valid, key_ranges.get(s)))
                 width_list.append(
                     _key_width(

@@ -29,8 +29,8 @@ import torch
 from trino_tpu_torch import types as T
 
 __all__ = [
-    "StringDictionary", "Column", "Page", "pad_capacity", "torch_dtype",
-    "page_from_numpy", "unify_dictionaries",
+    "StringDictionary", "HashStringPool", "HashCollision", "Column", "Page",
+    "pad_capacity", "torch_dtype", "page_from_numpy", "unify_dictionaries",
 ]
 
 _TORCH_DTYPES = {
@@ -94,14 +94,111 @@ class StringDictionary:
         return StringDictionary(merged), remap_a, remap_b
 
 
+class HashCollision(RuntimeError):
+    """Two distinct strings share a hash64 — astronomically rare; the
+    caller rebuilds the column with a sorted dictionary."""
+
+    def __init__(self, a, b):
+        super().__init__(f"hash collision: {a!r} vs {b!r}")
+
+
+_POOL_TOKENS = iter(range(1, 1 << 62))
+
+
+class HashStringPool:
+    """High-cardinality VARCHAR representation (SURVEY §7 hard-parts):
+    the device column carries [hash64, source_row_id] lanes; this pool
+    holds the HOST strings the id lane indexes, plus a one-time
+    injectivity proof.
+
+    Unlike sorted-dictionary codes, hash codes are GLOBALLY consistent
+    (hash(s) is the same in every column), so joins/exchanges never
+    remap — only the cross-pool injectivity check must pass. Building
+    one costs a single hash pass instead of a sorted ``np.unique`` over
+    every string.
+
+    ``token`` is a process-unique id for cache keys (``id()`` can
+    alias a freed pool's address; tokens never repeat).
+    """
+
+    __slots__ = (
+        "values", "token", "_hashes", "_sorted", "_joinable",
+    )
+
+    def __init__(self, values: np.ndarray):
+        self.values = values  # host object array, id lane indexes it
+        self.token = next(_POOL_TOKENS)
+        self._hashes: np.ndarray | None = None
+        #: (unique sorted hashes, one representative string per hash)
+        self._sorted: tuple[np.ndarray, np.ndarray] | None = None
+        self._joinable: set[int] = set()
+
+    def hashes(self) -> np.ndarray:
+        if self._hashes is None:
+            self._hashes = np.fromiter(
+                (hash(s) for s in self.values),
+                dtype=np.int64, count=len(self.values),
+            )
+        return self._hashes
+
+    def verify_injective(self) -> None:
+        """Prove hash64 is injective on this pool's values (memoized,
+        vectorized: sort hashes, string-compare only within equal-hash
+        runs — any run holding two distinct strings has an adjacent
+        differing pair). A collision (probability ~n^2/2^64) raises —
+        callers rebuild with a sorted dictionary."""
+        if self._sorted is not None:
+            return
+        h = self.hashes()
+        if len(h) == 0:
+            self._sorted = (h, self.values)
+            return
+        order = np.argsort(h, kind="stable")
+        hs = h[order]
+        vs = self.values[order]
+        same_h = hs[1:] == hs[:-1]
+        if same_h.any():
+            diff = same_h & (vs[1:] != vs[:-1])
+            if diff.any():
+                i = int(np.argmax(diff))
+                raise HashCollision(vs[i], vs[i + 1])
+        # dedupe to one representative per hash (injectivity proven)
+        first = np.concatenate([[True], ~same_h])
+        self._sorted = (hs[first], vs[first])
+
+    def verify_joinable(self, other: "HashStringPool") -> None:
+        """Prove injectivity across BOTH pools (join exactness);
+        memoized per pool pair and fully vectorized: compare the
+        representative strings at hash values common to both sides."""
+        if other.token in self._joinable or other is self:
+            return
+        self.verify_injective()
+        other.verify_injective()
+        ha, va = self._sorted
+        hb, vb = other._sorted
+        common, ia, ib = np.intersect1d(
+            ha, hb, assume_unique=True, return_indices=True
+        )
+        if len(common) and (va[ia] != vb[ib]).any():
+            bad = int(np.argmax(va[ia] != vb[ib]))
+            raise HashCollision(va[ia][bad], vb[ib][bad])
+        self._joinable.add(other.token)
+        other._joinable.add(self.token)
+
+
 @dataclass
 class Column:
-    """One device column: fixed-width data + optional validity + dict."""
+    """One device column: fixed-width data + optional validity + dict.
+
+    A hash-coded VARCHAR column (``hash_pool`` set) holds [cap, 2] int64
+    data: the string's 64-bit hash and the row id into the pool's host
+    strings."""
 
     type: T.DataType
     data: torch.Tensor
     valid: torch.Tensor | None = None  # None => all valid
     dictionary: StringDictionary | None = None
+    hash_pool: HashStringPool | None = None
 
     @property
     def capacity(self) -> int:
@@ -194,6 +291,8 @@ class Page:
             valid = None if valid is None else valid[sel_rows]
             if c.dictionary is not None:
                 data = c.dictionary.decode(data).astype(object)
+            elif c.hash_pool is not None:
+                data = c.hash_pool.values[data[:, 1]].astype(object)
             cols.append([
                 None if (valid is not None and not valid[j])
                 else _pyvalue(c.type, data[j])
