@@ -9,25 +9,31 @@ Run from the repository root, with no arguments:
 2. Builds the hand-written CUDA kernels from ``trino_tpu_torch/csrc`` with
    nvcc for sm_90a (all sources in parallel).
 3. Kernel phases: each kernel (K1 group_ids, K2 seg_sum, K3 join_probe,
-   K4 expand_matches, K5 range_any, K6 scatter_any) runs on the card at
-   the main path's shapes (TPC-H SF10 scale: 60M rows with 4 and with
-   1.5M groups; a 15M-row build side against a 60M-row probe; 15M probe
-   rows of 1-7 matches each, ~60M expanded positions, also with one hot
-   probe row owning 10% of them; 60M indices into 15M slots), is held
-   against its plain torch version on the same inputs (integers and
-   booleans exactly, float64 sums to relative 1e-12), and is timed
-   beside the plain version, one PyTorch library call that computes the
-   same function where there is one, and the least time the card could
-   take (bytes each input read once and each output written once, over
-   3.35 TB/s of HBM; K5 counts the out_live bytes up to each range's
-   first live position, where its scan stops).
+   K4 expand_matches, K5 range_any, K6 scatter_any, K7 hash_keys, K8
+   pack_words, K9 seg_minmax, K10 order_words) runs on the card at the
+   main path's shapes (TPC-H SF10 scale: 60M rows with 4 and with 1.5M
+   groups, and 8M partsupp rows in 2M groups; a 15M-row build side
+   against a 60M-row probe; 15M probe rows of 1-7 matches each, ~60M
+   expanded positions, also with one hot probe row owning 10% of them;
+   60M indices into 15M slots; 60M rows of two and of three join-key
+   parts; 60M rows of one and of three GROUP BY keys to pack; 15M orders
+   rows of two ORDER BY keys), is held against its plain torch version
+   on the same inputs (integers, booleans, min/max and sort words
+   exactly, float64 sums to relative 1e-12; K1's representative flags
+   and K10's permutation too), and is timed beside the plain version,
+   one PyTorch library call that computes the same function where there
+   is one, and the least time the card could take (bytes each input read
+   once and each output written once, over 3.35 TB/s of HBM; K5 counts
+   the out_live bytes up to each range's first live position, where its
+   scan stops).
 4. Main path: ``QueryRunner.tpch("sf1")`` and ``QueryRunner.tpch("sf10")``
-   on cuda run TPC-H Q1, Q3, Q18, Q4, Q17, Q21 and a full outer join
-   (tables resident on the card). Rows must equal the exact numpy
-   reference (``trino_tpu_torch.testing.numpy_reference``; Q17's one
-   DOUBLE to relative 1e-12), cold and in 3 warm runs. Every kernel's
-   launch count is set to 0 before the main path and must be non-zero
-   after it; the launches of each query's runs are printed.
+   on cuda run TPC-H Q1, Q3, Q18, Q4, Q17, Q21, a full outer join and
+   Q2, Q9, Q11, Q13, Q14, Q16, Q20, Q22 (tables resident on the card).
+   Rows must equal the exact numpy reference
+   (``trino_tpu_torch.testing.numpy_reference.rows_match``: Q14's and
+   Q17's one DOUBLE to relative 1e-12), cold and in 3 warm runs. Every
+   kernel's launch count is set to 0 before the main path and must be
+   non-zero after it; the launches of each query's runs are printed.
 5. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -50,6 +56,11 @@ HBM_BYTES_PER_S = 3.35e12
 #: TPC-H SF10 row counts the kernel phases are sized at
 LINEITEM_ROWS = 60_000_000
 ORDERS_ROWS = 15_000_000
+PARTSUPP_ROWS = 8_000_000
+PART_ROWS = 2_000_000
+#: the TPC-H queries that string predicates, DISTINCT aggregates and the
+#: cross join brought onto the card
+NEW_QUERIES = ("q02", "q09", "q11", "q13", "q14", "q16", "q20", "q22")
 SEED = 20261017
 
 
@@ -92,14 +103,14 @@ def same(torch, a, b) -> bool:
 # ---- kernel phases ----------------------------------------------------------
 
 
-def group_case(torch, np, K, shapes, dev, n_groups: int):
+def group_case(torch, np, K, shapes, dev, n_groups: int, rows: int = LINEITEM_ROWS):
     """Sorted Q1/Q3-like grouping inputs: packed key words with liveness
     folded in (the sort_group hot path), ~3% dead rows."""
     rng = np.random.default_rng(SEED + n_groups)
     keys = torch.from_numpy(
-        rng.integers(0, n_groups, size=LINEITEM_ROWS, dtype=np.int64)
+        rng.integers(0, n_groups, size=rows, dtype=np.int64)
     ).to(dev)
-    live = torch.from_numpy(rng.random(LINEITEM_ROWS) >= 0.03).to(dev)
+    live = torch.from_numpy(rng.random(rows) >= 0.03).to(dev)
     width = max(1, int(n_groups - 1).bit_length())
     words, folded, total_bits = K._pack_words((keys,), (None,), live, (width,))
     if not folded:
@@ -113,18 +124,24 @@ def group_case(torch, np, K, shapes, dev, n_groups: int):
 
 def k1_phase(torch, K, ps, live_s, perm, capacity) -> tuple[dict, tuple]:
     n = ps.shape[0]
-    got = K.group_ids(ps, None, live_s, perm, capacity)
-    want = K.group_ids_plain(ps, None, live_s, perm, capacity)
+    got = K.group_ids(ps, None, live_s, perm, capacity, with_rep=True)
+    want = K.group_ids_plain(ps, None, live_s, perm, capacity, with_rep=True)
     torch.cuda.synchronize()
+    # every field, the representative flag `rep` included
     for name, a, b in zip(K.GroupInfo._fields, got, want):
         if not same(torch, a, b):
             fail(f"group_ids: {name} differs from the plain version")
+    if int(got.rep.sum()) != min(int(got.num_groups), capacity):
+        fail("group_ids: rep does not mark one row per group")
     n_live = int(live_s.sum())
     live_words = ps[:n_live]
     return {
         "max_abs_err": 0,
         "ms": timed_ms(torch, lambda: K.group_ids(ps, None, live_s, perm, capacity)),
         "plain_ms": timed_ms(torch, lambda: K.group_ids_plain(ps, None, live_s, perm, capacity)),
+        # with the representative flags (a DISTINCT's dedupe)
+        "rep_ms": timed_ms(torch, lambda: K.group_ids(
+            ps, None, live_s, perm, capacity, with_rep=True)),
         "library_ms": timed_ms(torch, lambda: torch.unique_consecutive(
             live_words, return_inverse=True, return_counts=True)),
         # words, perm (8 B) + live_s (1 B) in; gid_sorted, group (8 B) out;
@@ -366,20 +383,216 @@ def k6_phase(torch, K, idx, flags) -> dict:
     }
 
 
-# ---- main path ---------------------------------------------------------------
+def hash_case(torch, np, dev, three: bool):
+    """K7 inputs at SF10 shape: Q9's two-key lineitem-partsupp join keys
+    (60M l_partkey, l_suppkey); with ``three``, a float64 part (with
+    -0.0 and NaN) and a nullable int32 part beside them."""
+    rng = np.random.default_rng(SEED + 70 + three)
+    n = LINEITEM_ROWS
+    cols = [
+        (torch.from_numpy(rng.integers(1, 2_000_001, size=n)).to(dev), None),
+        (torch.from_numpy(rng.integers(1, 100_001, size=n)).to(dev), None),
+    ]
+    if three:
+        f = rng.integers(90_000, 10_495_000, size=n) / 100.0
+        f[rng.random(n) < 0.01] = -0.0
+        f[rng.random(n) < 0.01] = np.nan
+        cols[1] = (torch.from_numpy(f).to(dev), None)
+        cols.append((
+            torch.from_numpy(rng.integers(8000, 11000, size=n).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.random(n) >= 0.1).to(dev),
+        ))
+    return cols
 
 
-def rows_equal(name: str, got, want) -> bool:
-    """Exact row equality; Q17's one DOUBLE (the exact decimal sum over
-    7.0, converted to a double on both sides) to relative 1e-12."""
-    if name != "q17":
-        return got == want
-    return (
-        len(got) == len(want) == 1
-        and (got[0][0] is None) == (want[0][0] is None)
-        and (got[0][0] is None
-             or abs(got[0][0] - want[0][0]) <= 1e-12 * abs(want[0][0]))
+def col_bytes(cols) -> int:
+    """Bytes of key columns read once: data and validity."""
+    return sum(
+        d.numel() * d.element_size() + (0 if v is None else v.numel())
+        for d, v in cols
     )
+
+
+def k7_phase(torch, K, cols) -> dict:
+    got = K.hash_keys(cols)
+    want = K.hash_keys_plain(cols)
+    torch.cuda.synchronize()
+    if not same(torch, got, want):
+        fail("hash_keys differs from the plain version")
+    n = cols[0][0].shape[0]
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.hash_keys(cols)),
+        "plain_ms": timed_ms(torch, lambda: K.hash_keys_plain(cols)),
+        "library_ms": None,  # no single PyTorch call hashes key columns
+        # key parts (and validity) in, one u64 hash per row out
+        "bound_ms": bound_ms(col_bytes(cols) + n * 8),
+        "rows": n, "parts": len(cols),
+    }
+
+
+def pack_case(torch, np, dev, three: bool):
+    """K8 inputs at SF10 shape: Q18's l_orderkey (60M rows) narrowed to
+    its value range, the live bit folded in; with ``three``, three
+    nullable keys (int32, int64, int64) packed with their null flags
+    into one word."""
+    rng = np.random.default_rng(SEED + 80 + three)
+    n = LINEITEM_ROWS
+    live = torch.from_numpy(rng.random(n) >= 0.03).to(dev)
+    if not three:
+        keys = rng.integers(0, 60_000_000, size=n)
+        return [(torch.from_numpy(keys).to(dev), None)], live, (26,)
+    cols = [
+        (torch.from_numpy(rng.integers(0, 4096, size=n).astype(np.int32)).to(dev),
+         torch.from_numpy(rng.random(n) >= 0.05).to(dev)),
+        (torch.from_numpy(rng.integers(0, 1 << 20, size=n)).to(dev),
+         torch.from_numpy(rng.random(n) >= 0.05).to(dev)),
+        (torch.from_numpy(rng.integers(0, 1 << 25, size=n)).to(dev),
+         torch.from_numpy(rng.random(n) >= 0.05).to(dev)),
+    ]
+    return cols, live, (12, 20, 25)
+
+
+def k8_phase(torch, K, cols, live, widths) -> dict:
+    got = K.pack_keys(cols, live, widths)
+    want = K.pack_keys_plain(cols, live, widths)
+    torch.cuda.synchronize()
+    if got[1:] != want[1:] or len(got[0]) != len(want[0]) or not all(
+        same(torch, a, b) for a, b in zip(got[0], want[0])
+    ):
+        fail(f"pack_words {widths} differs from the plain version")
+    n = live.shape[0]
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.pack_keys(cols, live, widths)),
+        "plain_ms": timed_ms(torch, lambda: K.pack_keys_plain(cols, live, widths)),
+        "library_ms": None,  # no single PyTorch call packs keys
+        # keys, validity and live in; the packed words out
+        "bound_ms": bound_ms(col_bytes(cols) + n + n * 8 * len(got[0])),
+        "rows": n, "keys": len(cols), "words": len(got[0]),
+        "live_folded": got[1],
+    }
+
+
+def nan_equal(torch, a, b) -> bool:
+    """Exact equality with NaN equal to NaN and the sign of zero kept."""
+    if a.dtype.is_floating_point:
+        if not same(torch, torch.isnan(a), torch.isnan(b)):
+            return False
+        num = ~torch.isnan(a)
+        a, b = a[num], b[num]
+        if not same(torch, torch.signbit(a), torch.signbit(b)):
+            return False
+    return same(torch, a, b)
+
+
+def k9_phase(torch, np, K, info, dtype_name: str, tag: int) -> dict:
+    """K9 over group-sorted values of ``info``'s groups: 30% of the rows
+    do not contribute (they hold the fill); float64 values carry -0.0
+    and, in a few groups, NaN."""
+    rng = np.random.default_rng(SEED + 90 + tag)
+    n = info.perm.shape[0]
+    dev = info.perm.device
+    if dtype_name == "int64":
+        v = torch.from_numpy(rng.integers(0, 100_000_000, size=n)).to(dev)
+        fill = (1 << 63) - 1
+    else:
+        x = rng.integers(100, 100_000, size=n) / 100.0
+        x[rng.random(n) < 0.01] = -0.0
+        x[rng.random(n) < 1e-6] = np.nan
+        v = torch.from_numpy(x).to(dev)
+        fill = float("inf")
+    contrib = torch.from_numpy(rng.random(n) >= 0.3).to(dev)
+    vals = torch.where(contrib, v, torch.tensor(fill, dtype=v.dtype, device=dev))
+    starts, ends = info.starts, info.ends
+    got = K.seg_minmax(vals, starts, ends, fill, True)
+    want = K.seg_minmax_plain(vals, starts, ends, fill, True)
+    torch.cuda.synchronize()
+    if not nan_equal(torch, got, want):
+        fail(f"seg_minmax {dtype_name} differs from the plain version")
+    cap = starts.shape[0]
+    gid = info.gid_sorted
+
+    def library():  # what the port called before K9
+        out = torch.full((cap + 1,), fill, dtype=vals.dtype, device=dev)
+        return out.scatter_reduce_(0, gid, vals, reduce="amin", include_self=True)
+
+    case = {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.seg_minmax(vals, starts, ends, fill, True)),
+        "plain_ms": timed_ms(torch, lambda: K.seg_minmax_plain(vals, starts, ends, fill, True)),
+        "library_ms": timed_ms(torch, library),
+        # values (8 B/row) and ends (8 B/slot) in, one value per slot out
+        "bound_ms": bound_ms(n * 8 + cap * 16),
+        "rows": n, "capacity": cap, "groups": int(info.num_groups),
+        "dtype": dtype_name, "nan_groups": int(torch.isnan(got).sum()),
+    }
+    if dtype_name == "float64":
+        n_end = int(ends[-1])
+        lengths = ends - starts
+        seg_vals = vals[:n_end]
+        case["segment_reduce_ms"] = timed_ms(torch, lambda: torch.segment_reduce(
+            seg_vals, "min", lengths=lengths))
+    return case
+
+
+def order_case(torch, np, dev):
+    """K10 inputs at SF10 shape: 15M orders rows ordered by o_totalprice
+    DESC (float64, 5% NULL) then o_orderdate ASC (int32), ~10% dead."""
+    rng = np.random.default_rng(SEED + 100)
+    n = ORDERS_ROWS
+    price = torch.from_numpy(rng.integers(85_000, 55_000_000, size=n) / 100.0).to(dev)
+    valid = torch.from_numpy(rng.random(n) >= 0.05).to(dev)
+    date = torch.from_numpy(rng.integers(8035, 10591, size=n).astype(np.int32)).to(dev)
+    live = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    return [(price, valid, False, True), (date, None, True, False)], live
+
+
+def perm_from_words(torch, words, flags, dead):
+    """sort_perm's stable sort passes over order words, as the port runs
+    them after K10."""
+    n = dead.shape[0]
+    perm = torch.arange(n, dtype=torch.int64, device=dead.device)
+    for kd, flag in reversed(list(zip(words, flags))):
+        perm = perm[torch.sort(kd[perm], stable=True).indices]
+        if flag is not None:
+            perm = perm[torch.sort(flag[perm], stable=True).indices]
+    return perm[torch.sort(dead[perm], stable=True).indices]
+
+
+def k10_phase(torch, K, keys, live) -> dict:
+    got = K.order_words(keys, live)
+    want = K.order_words_plain(keys, live)
+    torch.cuda.synchronize()
+    ok = all(same(torch, a, b) for a, b in zip(got[0], want[0]))
+    ok = ok and all(
+        (a is None) == (b is None) and (a is None or same(torch, a, b))
+        for a, b in zip(got[1], want[1])
+    )
+    if not (ok and same(torch, got[2], want[2])):
+        fail("order_words differs from the plain version")
+    perm = K.sort_perm(keys, live)
+    if not same(torch, perm, perm_from_words(torch, *want)):
+        fail("sort_perm over K10's words differs from the plain version's")
+    n = live.shape[0]
+    word_bytes = sum(w.numel() * w.element_size() for w in got[0])
+    flag_bytes = sum(f.numel() for f in got[1] if f is not None)
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.order_words(keys, live)),
+        "plain_ms": timed_ms(torch, lambda: K.order_words_plain(keys, live)),
+        "library_ms": None,  # no single PyTorch call builds sort words
+        "sort_perm_ms": timed_ms(torch, lambda: K.sort_perm(keys, live)),
+        # keys, validity and live in; words, flags and dead bytes out
+        "bound_ms": bound_ms(
+            sum(d.numel() * d.element_size() + (0 if v is None else v.numel())
+                for d, v, _a, _f in keys) + n + word_bytes + flag_bytes + n
+        ),
+        "rows": n, "keys": len(keys),
+    }
+
+
+# ---- main path ---------------------------------------------------------------
 
 
 def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
@@ -391,7 +604,7 @@ def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
         ("q17", QUERIES["q17"], R.q17),
         ("q21", QUERIES["q21"], R.q21),
         ("fj", R.FJ_SQL, R.fj),
-    ]
+    ] + [(q, QUERIES[q], getattr(R, q)) for q in NEW_QUERIES]
     results = {}
     K.reset_launches()
     for scale in ("sf1", "sf10"):
@@ -399,6 +612,11 @@ def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
         runner = QueryRunner.tpch(scale)
         if runner.device.type != "cuda":
             fail(f"runner for {scale} is on {runner.device}")
+        # the port has no spill tier yet (ROADMAP Queue 1, step 12), so a
+        # join over the per-node cap cannot be revoked to the host: the
+        # cap is set to what the 80 GB card holds (Q9's SF10 join
+        # reserves 7.3 GB against the 2GB default)
+        runner.session.properties["query_max_memory_per_node"] = "64GB"
         data = runner.metadata.connector("tpch").data(scale)
         torch.cuda.reset_peak_memory_stats()
         for name, sql, ref in queries:
@@ -408,7 +626,7 @@ def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
             torch.cuda.synchronize()
             cold_ms = (time.perf_counter() - tc) * 1e3
             want = ref(data)
-            if not rows_equal(name, rows, want):
+            if not R.rows_match(name, rows, want):
                 fail(f"{name} at {scale}: rows differ from the numpy reference"
                      f"\n got  {rows[:3]}\n want {want[:3]}")
             warm = []
@@ -479,12 +697,27 @@ def main() -> int:
     k1_q1, info_q1 = k1_phase(torch, K, ps, live_s, perm, cap)
     k2_q1 = k2_phase(torch, np, K, info_q1, "int64", 4)
     k2_q1f = k2_phase(torch, np, K, info_q1, "float64", 4)
+    k9_q1 = k9_phase(torch, np, K, info_q1, "int64", 1)
+    k9_q1f = k9_phase(torch, np, K, info_q1, "float64", 2)
     del ps, live_s, perm
     ps, live_s, perm, cap = group_case(torch, np, K, shapes, dev, 1_500_000)
     k1_q3, info_q3 = k1_phase(torch, K, ps, live_s, perm, cap)
     k2_q3 = k2_phase(torch, np, K, info_q3, "int64", 1_500_000)
     k2_q3f = k2_phase(torch, np, K, info_q3, "float64", 1_500_000)
+    k9_q3 = k9_phase(torch, np, K, info_q3, "int64", 3)
+    k9_q3f = k9_phase(torch, np, K, info_q3, "float64", 4)
     del ps, live_s, perm, info_q1, info_q3
+    ps, live_s, perm, cap = group_case(
+        torch, np, K, shapes, dev, PART_ROWS, rows=PARTSUPP_ROWS)
+    k1_q2, info_q2 = k1_phase(torch, K, ps, live_s, perm, cap)
+    k9_q2 = k9_phase(torch, np, K, info_q2, "int64", 5)
+    del ps, live_s, perm, info_q2
+    k7 = k7_phase(torch, K, hash_case(torch, np, dev, three=False))
+    k7_3 = k7_phase(torch, K, hash_case(torch, np, dev, three=True))
+    k8 = k8_phase(torch, K, *pack_case(torch, np, dev, three=False))
+    k8_3 = k8_phase(torch, K, *pack_case(torch, np, dev, three=True))
+    k10 = k10_phase(torch, K, *order_case(torch, np, dev))
+    torch.cuda.empty_cache()
     order, sorted_key, nbl, pk, pl = join_case(torch, np, K, dev)
     k3, (lo, cnt) = k3_phase(torch, K, order, sorted_key, nbl, pk, pl)
     k4 = k4_phase(torch, K, shapes, order, lo, cnt)
@@ -511,11 +744,22 @@ def main() -> int:
                       "trino_tpu/exec/kernels.py:489"),
         "scatter_any": ("trino_tpu_torch/csrc/scatter_any.cu",
                         "trino_tpu/exec/kernels.py:502"),
+        "hash_keys": ("trino_tpu_torch/csrc/hash_keys.cu",
+                      "trino_tpu/exec/kernels.py:124"),
+        "pack_words": ("trino_tpu_torch/csrc/pack_words.cu",
+                       "trino_tpu/exec/kernels.py:266"),
+        "seg_minmax": ("trino_tpu_torch/csrc/seg_minmax.cu",
+                       "trino_tpu/exec/kernels.py:384"),
+        "order_words": ("trino_tpu_torch/csrc/order_words.cu",
+                        "trino_tpu/exec/kernels.py:515"),
     }
     rows = f"{LINEITEM_ROWS / 1e6:g}M rows"
     join = f"{ORDERS_ROWS / 1e6:g}M build, {LINEITEM_ROWS / 1e6:g}M probe"
-    entries["group_ids"] = dict(k1_q1, case=f"{rows}, 4 groups",
-                                cases=[dict(k1_q3, case=f"{rows}, 1.5M groups")])
+    entries["group_ids"] = dict(
+        k1_q1, case=f"{rows}, 4 groups",
+        cases=[dict(k1_q3, case=f"{rows}, 1.5M groups"),
+               dict(k1_q2, case=f"{PARTSUPP_ROWS / 1e6:g}M rows, "
+                    f"{PART_ROWS / 1e6:g}M groups (Q2's shape)")])
     entries["seg_sum"] = dict(k2_q1, case=f"{rows}, 4 groups, int64",
                               cases=[dict(k2_q3, case=f"{rows}, 1.5M groups, int64"),
                                      dict(k2_q1f, case=f"{rows}, 4 groups, float64"),
@@ -530,6 +774,24 @@ def main() -> int:
     entries["scatter_any"] = dict(
         k6, case=f"{LINEITEM_ROWS / 1e6:g}M indices into "
                  f"{ORDERS_ROWS / 1e6:g}M slots")
+    entries["hash_keys"] = dict(
+        k7, case=f"{rows} x 2 int64 parts (Q9's l_partkey, l_suppkey)",
+        cases=[dict(k7_3, case=f"{rows} x 3 parts: int64, float64 with "
+                    "-0.0 and NaN, nullable int32")])
+    entries["pack_words"] = dict(
+        k8, case=f"{rows}, one 26-bit key, live bit folded (Q18's l_orderkey)",
+        cases=[dict(k8_3, case=f"{rows}, 3 nullable keys (12, 20, 25 bits) "
+                    "in one word")])
+    entries["seg_minmax"] = dict(
+        k9_q1, case=f"{rows}, 4 groups, int64 min",
+        cases=[dict(k9_q3, case=f"{rows}, 1.5M groups, int64 min"),
+               dict(k9_q1f, case=f"{rows}, 4 groups, float64 min"),
+               dict(k9_q3f, case=f"{rows}, 1.5M groups, float64 min"),
+               dict(k9_q2, case=f"{PARTSUPP_ROWS / 1e6:g}M rows, "
+                    f"{PART_ROWS / 1e6:g}M groups, int64 min (Q2's shape)")])
+    entries["order_words"] = dict(
+        k10, case=f"{ORDERS_ROWS / 1e6:g}M rows: float64 DESC with NULLs, "
+                  "int32 ASC, 10% dead")
     for name, e in entries.items():
         print(f"kernel {name} [{e['case']}]: {e['ms']:.3f} ms, plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']} ms, bound "
@@ -561,9 +823,11 @@ def main() -> int:
             "case": e["case"],
             "cases": [
                 {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "library_ms")}
+                                   "bound_ms", "library_ms", "rep_ms",
+                                   "segment_reduce_ms") if k in c}
                 for c in e.get("cases", [])
             ],
+            **{k: e[k] for k in ("sort_perm_ms", "rep_ms") if k in e},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

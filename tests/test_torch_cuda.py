@@ -7,7 +7,8 @@ The file imports no JAX, so it also runs where JAX is not installed:
 
 Inputs are made with numpy from fixed seeds; the same tensors go through
 each kernel on the card and through its plain version on the CPU.
-Integer outputs must be equal; float64 sums agree to relative 1e-12.
+Integer outputs must be equal, as must min/max results (NaN equal to
+NaN, the sign of zero kept); float64 sums agree to relative 1e-12.
 """
 
 import numpy as np
@@ -35,7 +36,8 @@ def _group_inputs(n, n_keys, dead_frac, seed):
 
 def _assert_info_equal(a, b):
     for name, x, y in zip(K.GroupInfo._fields, a, b):
-        assert torch.equal(x.cpu(), y.cpu()), name
+        assert (x is None) == (y is None), name
+        assert x is None or torch.equal(x.cpu(), y.cpu()), name
 
 
 @pytest.mark.parametrize("n,n_keys,capacity,widths", [
@@ -53,11 +55,12 @@ def test_group_ids_kernel(cuda, n, n_keys, capacity, widths):
         keys = keys | (1 << 62)  # exercise the top key bit
     cpu_bits = (torch.from_numpy(keys),)
     cpu_live = torch.from_numpy(live)
-    want = K.sort_group(cpu_bits, (None,), cpu_live, capacity, widths=widths)
+    want = K.sort_group(cpu_bits, (None,), cpu_live, capacity, widths=widths,
+                        with_rep=True)
     K.group_ids.launches = 0
     got = K.sort_group(
         tuple(b.to(cuda) for b in cpu_bits), (None,), cpu_live.to(cuda),
-        capacity, widths=widths,
+        capacity, widths=widths, with_rep=True,
     )
     torch.cuda.synchronize()
     assert K.group_ids.launches == 1
@@ -184,15 +187,232 @@ def test_scatter_any_kernel(cuda, m, capacity, hot):
     assert torch.equal(got.cpu(), want)
 
 
+def _hash_parts(case, n, seed):
+    """Key parts [(data, valid|None)] as numpy arrays for K7."""
+    rng = np.random.default_rng(seed)
+    if case == "two_int64":  # Q9: l_partkey, l_suppkey
+        return [(rng.integers(0, 1 << 40, size=n).astype(np.int64), None),
+                (rng.integers(-(1 << 62), 1 << 62, size=n).astype(np.int64), None)]
+    if case == "float_nullable":
+        f = rng.normal(size=n)
+        if n:
+            f[:: max(n // 4, 1)] = np.nan
+            f[1:: max(n // 5, 1)] = -0.0
+            f[2:: max(n // 6, 1)] = 0.0
+        return [(rng.integers(0, 9, size=n).astype(np.int64), None),
+                (f, None),
+                (rng.integers(-5, 5, size=n).astype(np.int32), rng.random(n) >= 0.3)]
+    if case == "narrow":
+        return [(rng.integers(-100, 100, size=n).astype(np.int8), None),
+                (rng.integers(-999, 999, size=n).astype(np.int16), rng.random(n) >= 0.5),
+                (rng.random(n) >= 0.5, None),
+                (rng.normal(size=n).astype(np.float32), None)]
+    if case == "many":  # more parts than one launch takes
+        return [(rng.integers(0, 3, size=n).astype(np.int64), None)
+                for _ in range(K.MAX_KEY_PARTS + 3)]
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case,n", [
+    ("two_int64", 0), ("two_int64", 1), ("two_int64", 100_000),
+    ("float_nullable", 50_000), ("narrow", 50_000), ("many", 3000),
+])
+def test_hash_keys_kernel(cuda, case, n):
+    parts = _hash_parts(case, n, seed=n + len(case))
+    cpu = [(torch.from_numpy(d), None if v is None else torch.from_numpy(v))
+           for d, v in parts]
+    want = K.hash_keys(cpu)
+    K.hash_keys.launches = 0
+    got = K.hash_keys([(d.to(cuda), None if v is None else v.to(cuda)) for d, v in cpu])
+    torch.cuda.synchronize()
+    assert K.hash_keys.launches == -(-len(parts) // K.MAX_KEY_PARTS)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_hash_keys_kernel_strided_lane(cuda):
+    # a hash-coded varchar's hash lane is a stride-2 view of [n, 2]
+    rng = np.random.default_rng(3)
+    lanes = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, size=(5000, 2)))
+    other = torch.from_numpy(rng.integers(0, 50, size=5000).astype(np.int64))
+    want = K.hash_keys([(lanes[:, 0], None), (other, None)])
+    d = lanes.to(cuda)
+    got = K.hash_keys([(d[:, 0], None), (other.to(cuda), None)])
+    assert torch.equal(got.cpu(), want)
+
+
+def _pack_case(case, n, seed):
+    """(cols [(data, valid|None)], live, widths) for K8."""
+    rng = np.random.default_rng(seed)
+    live = rng.random(n) >= 0.1
+    if case == "folded":  # Q18: l_orderkey narrowed, live bit folded in
+        return [(rng.integers(0, 1 << 26, size=n).astype(np.int64), None)], live, (26,)
+    if case == "three_nullable":
+        cols = [(rng.integers(0, 1 << 10, size=n).astype(np.int32), rng.random(n) >= 0.2),
+                (rng.integers(0, 25, size=n).astype(np.int64), rng.random(n) >= 0.2),
+                (rng.integers(0, 1 << 20, size=n).astype(np.int64), rng.random(n) >= 0.2)]
+        return cols, live, (10, 5, 20)
+    if case == "packed63":
+        k = rng.integers(0, 40, size=n).astype(np.int64) | np.int64(1 << 61)
+        return [(k, rng.random(n) >= 0.2)], live, (62,)
+    if case == "multiword":
+        cols = [(rng.integers(-(1 << 62), 1 << 62, size=n).astype(np.int64), None),
+                (rng.normal(size=n), None),
+                (rng.integers(0, 9, size=n).astype(np.int16), rng.random(n) >= 0.5),
+                (rng.random(n) >= 0.5, None)]
+        cols[1][0][:: 7] = np.nan
+        cols[1][0][1:: 7] = -0.0
+        return cols, live, (64, 64, 4, 1)
+    if case == "many_flags":  # 70 one-bit keys: two words
+        cols = [(rng.random(n) >= 0.5, None) for _ in range(70)]
+        return cols, live, (1,) * 70
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case,n", [
+    ("folded", 0), ("folded", 1), ("folded", 200_000),
+    ("three_nullable", 200_000), ("packed63", 50_000), ("multiword", 50_000),
+    ("many_flags", 5000),
+])
+def test_pack_words_kernel(cuda, case, n):
+    cols, live, widths = _pack_case(case, n, seed=n + len(case))
+    cpu = [(torch.from_numpy(d), None if v is None else torch.from_numpy(v)) for d, v in cols]
+    lv = torch.from_numpy(live)
+    want = K.pack_keys(cpu, lv, widths)
+    K.pack_keys.launches = 0
+    got = K.pack_keys(
+        [(d.to(cuda), None if v is None else v.to(cuda)) for d, v in cpu],
+        lv.to(cuda), widths,
+    )
+    torch.cuda.synchronize()
+    assert K.pack_keys.launches == len(want[0])  # one launch per word
+    assert got[1:] == want[1:] and len(got[0]) == len(want[0])
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a.cpu(), b)
+    # the whole GROUP BY (K8, torch.sort, K1) equals the CPU's
+    capacity = 1 << 18
+    _assert_info_equal(
+        K.group_by([(d.to(cuda), None if v is None else v.to(cuda)) for d, v in cpu],
+                   lv.to(cuda), capacity, widths),
+        K.group_by(cpu, lv, capacity, widths),
+    )
+
+
+def _nan_equal(a, b):
+    """Exact equality with NaN equal to NaN and the sign of zero kept."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype.is_floating_point:
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return False
+        keep = ~torch.isnan(a)
+        a, b = a[keep], b[keep]
+        if not torch.equal(torch.signbit(a), torch.signbit(b)):
+            return False
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,n_keys,dtype", [
+    (0, 1, torch.int64),
+    (7, 3, torch.float64),
+    (200_000, 4, torch.int64),
+    (200_000, 60_000, torch.int64),
+    (200_000, 4, torch.float64),
+    (200_000, 60_000, torch.float64),
+    (200_000, 60_000, torch.int8),
+    (200_000, 60_000, torch.int32),
+    (200_000, 600, torch.float32),
+])
+def test_seg_minmax_kernel(cuda, n, n_keys, dtype):
+    keys, live = _group_inputs(n, n_keys, 0.2, seed=11 + n_keys)
+    rng = np.random.default_rng(n + 1)
+    cap = 1 << max(int(n_keys).bit_length(), 3)
+    info = K.sort_group(
+        (torch.from_numpy(keys),), (None,), torch.from_numpy(live), cap,
+        widths=(64,),
+    )
+    if dtype.is_floating_point:
+        v = rng.normal(size=n).round(1)
+        if n > 7:
+            v[rng.random(n) < 1e-3] = np.nan  # a few groups hold a NaN
+            v[rng.random(n) < 0.05] = -0.0
+        vals = torch.from_numpy(v).to(dtype)
+        fills = (float("inf"), float("-inf"))
+    else:
+        info_t = torch.iinfo(dtype)
+        vals = torch.from_numpy(rng.integers(info_t.min, info_t.max, size=n)).to(dtype)
+        fills = (info_t.max, info_t.min)
+    contrib = torch.from_numpy(rng.random(n) >= 0.3)
+    for is_min, fill in zip((True, False), fills):
+        masked = torch.where(contrib, vals, torch.tensor(fill, dtype=dtype))
+        want = K.seg_minmax(masked, info.starts, info.ends, fill, is_min)
+        K.seg_minmax.launches = 0
+        got = K.seg_minmax(masked.to(cuda), info.starts.to(cuda),
+                           info.ends.to(cuda), fill, is_min)
+        torch.cuda.synchronize()
+        assert K.seg_minmax.launches == 1
+        assert got.dtype == dtype
+        assert _nan_equal(got, want), (is_min, dtype)
+
+
+def _order_keys(n, seed):
+    """ORDER BY keys of every supported dtype: NaN, +-0.0, NULLs,
+    INT64_MIN under DESC, and about 10% dead rows."""
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=n).round(1)
+    if n:
+        f[:: max(n // 5, 1)] = np.nan
+        f[1:: max(n // 4, 1)] = -0.0
+    i64 = rng.integers(-5, 5, size=n).astype(np.int64)
+    if n:
+        i64[:: max(n // 3, 1)] = np.iinfo(np.int64).min
+    i32 = rng.integers(-5, 5, size=n).astype(np.int32)
+    if n:
+        i32[:: max(n // 3, 1)] = np.iinfo(np.int32).min
+    keys = [
+        (f, rng.random(n) >= 0.2, False, True),
+        (i64, None, False, False),
+        (i32, rng.random(n) >= 0.2, True, False),
+        (rng.random(n) >= 0.5, None, False, True),
+        (f.astype(np.float32), None, True, False),
+        (rng.integers(-3, 3, size=n).astype(np.int16), None, False, False),
+        (rng.integers(-3, 3, size=n).astype(np.int8), None, True, True),
+    ]
+    return keys, rng.random(n) >= 0.1
+
+
+@pytest.mark.parametrize("n,repeat", [
+    (0, 1), (1, 1), (7, 1), (100_000, 1),
+    (5000, 6),  # 42 keys: more than one launch takes
+])
+def test_order_words_kernel(cuda, n, repeat):
+    keys, live = _order_keys(n, seed=n)
+    keys = keys * repeat
+    cpu = [(torch.from_numpy(d), None if v is None else torch.from_numpy(v), a, f)
+           for d, v, a, f in keys]
+    lv = torch.from_numpy(live)
+    want = K.order_words(cpu, lv)
+    dev = [(d.to(cuda), None if v is None else v.to(cuda), a, f) for d, v, a, f in cpu]
+    K.order_words.launches = 0
+    got = K.order_words(dev, lv.to(cuda))
+    torch.cuda.synchronize()
+    assert K.order_words.launches == -(-len(keys) // K.MAX_KEY_PARTS)
+    for a, b in zip(got[0], want[0]):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    for a, b in zip(got[1], want[1]):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a.cpu(), b)
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(K.sort_perm(dev, lv.to(cuda)).cpu(), K.sort_perm(cpu, lv))
+
+
 def test_tiny_queries_on_card(cuda):
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
     from trino_tpu_torch.engine import QueryRunner
-    from trino_tpu_torch.testing.statements import JOIN_STATEMENTS
+    from trino_tpu_torch.testing.statements import JOIN_STATEMENTS, STRING_STATEMENTS
 
     gpu = QueryRunner.tpch("tiny")
     cpu = QueryRunner.tpch("tiny", device="cpu")
     assert gpu.device.type == "cuda"
-    statements = {"q01": QUERIES["q01"], "q03": QUERIES["q03"], **JOIN_STATEMENTS}
+    statements = {**QUERIES, **JOIN_STATEMENTS, **STRING_STATEMENTS}
     for name, sql in statements.items():
         got, want = gpu.execute(sql).rows, cpu.execute(sql).rows
         assert len(got) == len(want), name

@@ -83,7 +83,7 @@ def _norm_both(cols):
 
 
 def _assert_empty_info(info, capacity):
-    for name in ("perm", "gid_sorted", "group"):
+    for name in ("perm", "gid_sorted", "group", "rep"):
         assert getattr(info, name).shape == (0,), name
     for name in ("starts", "ends", "owner"):
         np.testing.assert_array_equal(
@@ -105,7 +105,7 @@ def test_sort_group_matches_jax(case, n):
     jn, tn = _norm_both(cols)
     got = TK.sort_group(
         tuple(b for b, _ in tn), tuple(f for _, f in tn),
-        torch.from_numpy(live), capacity, widths=widths,
+        torch.from_numpy(live), capacity, widths=widths, with_rep=True,
     )
     if n == 0:
         # the JAX sort_group cannot trace an empty page (its gathers need
@@ -118,6 +118,12 @@ def test_sort_group_matches_jax(case, n):
     )
     for name, w, g in zip(TK.GroupInfo._fields, want, got):
         np.testing.assert_array_equal(_np(g), _np(w), err_msg=name)
+    # K1's representative flag is the JAX _dedupe's owner test
+    owner, group = _np(want.owner), _np(want.group)
+    np.testing.assert_array_equal(
+        got.rep.numpy(),
+        live & (owner[np.clip(group, 0, capacity - 1)] == np.arange(n)),
+    )
     if case == "overflow" and n == 4096:
         assert int(got.num_groups) > capacity
 
@@ -228,6 +234,7 @@ def _sort_keys(n, seed):
     if n:
         floats[:: max(n // 5, 1)] = np.nan
         floats[1:: max(n // 4, 1)] = -0.0
+        ints[2:: max(n // 3, 1)] = np.iinfo(np.int64).min
     bools = rng.random(n) >= 0.5
     valid = rng.random(n) >= 0.2
     live = rng.random(n) >= 0.2
@@ -242,7 +249,18 @@ def test_sort_perm_matches_jax(n, order):
     asc, nulls_first = order
     ints, floats, bools, valid, live = _sort_keys(n, seed=n + 1)
     nf = (not asc) if nulls_first is None else nulls_first
-    spec = [(floats, None, asc, nf), (ints, valid, not asc, nf), (bools, None, asc, nf)]
+    # INT64_MIN and INT32_MIN under DESC wrap, as the reference's -x does
+    small = np.clip(ints, -5, 5)
+    i32 = np.where(ints == np.iinfo(np.int64).min, np.iinfo(np.int32).min,
+                   small).astype(np.int32)
+    narrow = [
+        (i32, valid, not asc, nf),
+        (floats.astype(np.float32), None, not asc, nf),
+        (small.astype(np.int16), None, asc, nf),
+        (small.astype(np.int8), valid, not asc, not nf),
+    ]
+    spec = [(floats, None, asc, nf), (ints, valid, not asc, nf), (bools, None, asc, nf),
+            *narrow]
     want = JK.sort_perm(
         [(jnp.asarray(d), None if v is None else jnp.asarray(v), a, f)
          for d, v, a, f in spec],
@@ -385,3 +403,207 @@ def test_scatter_any_without_positions():
         torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.bool), 5
     )
     np.testing.assert_array_equal(got.numpy(), np.zeros(5, dtype=bool))
+
+
+def _hash_case(case, n, seed):
+    """Key parts [(data, valid|None)] for K7: two int64 parts (a
+    multi-key join), floats with NaN and +-0.0 beside a nullable int32,
+    and the narrow types."""
+    rng = np.random.default_rng(seed)
+    if case == "two_int64":
+        return [(rng.integers(0, 1 << 40, size=n).astype(np.int64), None),
+                (rng.integers(-(1 << 62), 1 << 62, size=n).astype(np.int64), None)]
+    if case == "float_nullable":
+        f = rng.normal(size=n)
+        if n:
+            f[:: max(n // 4, 1)] = np.nan
+            f[1:: max(n // 5, 1)] = -0.0
+            f[2:: max(n // 6, 1)] = 0.0
+        return [(rng.integers(0, 9, size=n).astype(np.int64), None), (f, None),
+                (rng.integers(-5, 5, size=n).astype(np.int32), rng.random(n) >= 0.3)]
+    if case == "narrow":
+        g = rng.normal(size=n).astype(np.float32)
+        if n:
+            g[:: max(n // 3, 1)] = np.float32("nan")
+            g[1:: max(n // 3, 1)] = -0.0
+        return [(rng.integers(-100, 100, size=n).astype(np.int8), None),
+                (rng.integers(-999, 999, size=n).astype(np.int16), rng.random(n) >= 0.5),
+                (rng.random(n) >= 0.5, None), (g, None)]
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4096])
+@pytest.mark.parametrize("case", ["two_int64", "float_nullable", "narrow"])
+def test_hash_keys_matches_jax(case, n):
+    parts = _hash_case(case, n, seed=n + len(case))
+    want = JK.hash_columns(
+        [(jnp.asarray(d), None if v is None else jnp.asarray(v)) for d, v in parts]
+    )
+    got = TK.hash_keys(
+        [(torch.from_numpy(d), None if v is None else torch.from_numpy(v))
+         for d, v in parts]
+    )
+    assert got.dtype == torch.int64 and got.shape == (n,)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def _pack_case(case, n, seed):
+    """(cols [(data, valid|None)], live, widths) for K8."""
+    rng = np.random.default_rng(seed)
+    live = rng.random(n) >= 0.2
+    if case == "folded":
+        return [(rng.integers(0, 1 << 26, size=n).astype(np.int64), None)], live, (26,)
+    if case == "three_nullable":
+        return [
+            (rng.integers(0, 1 << 10, size=n).astype(np.int32), rng.random(n) >= 0.2),
+            (rng.integers(0, 25, size=n).astype(np.int64), rng.random(n) >= 0.2),
+            (rng.integers(0, 1 << 20, size=n).astype(np.int64), rng.random(n) >= 0.2),
+        ], live, (10, 5, 20)
+    if case == "packed63":
+        k = rng.integers(0, 40, size=n).astype(np.int64) | np.int64(1 << 61)
+        return [(k, rng.random(n) >= 0.2)], live, (62,)
+    if case == "multiword":
+        f = rng.normal(size=n)
+        if n:
+            f[:: max(n // 7, 1)] = np.nan
+            f[1:: max(n // 7, 1)] = -0.0
+        return [
+            (rng.integers(-(1 << 62), 1 << 62, size=n).astype(np.int64), None),
+            (f, None),
+            (rng.integers(0, 9, size=n).astype(np.int16), rng.random(n) >= 0.5),
+            (rng.random(n) >= 0.5, None),
+        ], live, (64, 64, 4, 1)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4096])
+@pytest.mark.parametrize("case", ["folded", "three_nullable", "packed63", "multiword"])
+def test_pack_keys_matches_jax(case, n):
+    cols, live, widths = _pack_case(case, n, seed=n + len(case))
+    jn = [JK.normalize_key(jnp.asarray(d), None if v is None else jnp.asarray(v))
+          for d, v in cols]
+    jw, jfold, jbits = JK._pack_words(
+        tuple(b for b, _ in jn),
+        tuple(None if v is None else f for (_, f), (_, v) in zip(jn, cols)),
+        jnp.asarray(live), widths,
+    )
+    tw, tfold, tbits = TK.pack_keys(
+        [(torch.from_numpy(d), None if v is None else torch.from_numpy(v))
+         for d, v in cols],
+        torch.from_numpy(live), widths,
+    )
+    assert (tfold, tbits, len(tw)) == (jfold, jbits, len(jw))
+    for a, b in zip(tw, jw):
+        assert a.shape == (n,)
+        np.testing.assert_array_equal(_np(a), _np(b))
+
+
+def _minmax_case(dtype, n, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == "float64":
+        v = rng.normal(size=n).round(1)
+        if n > 7:
+            v[rng.random(n) < 0.01] = np.nan  # some groups hold a NaN
+            v[rng.random(n) < 0.1] = -0.0
+            v[rng.random(n) < 0.1] = 0.0
+        return v, (np.inf, -np.inf)
+    info = np.iinfo(dtype)
+    v = rng.integers(info.min, info.max, size=n, endpoint=True).astype(dtype)
+    return v, (info.max, info.min)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype", ["int64", "float64", "int8", "int32"])
+def test_seg_minmax_matches_jax(dtype, n):
+    cols, live, capacity, _w = _key_case("dups" if n < 4096 else "overflow", n, 5)
+    capacity = 4 * max(n, 1) if n > 7 else capacity
+    jn, tn = _norm_both(cols)
+    tinfo = TK.sort_group(
+        tuple(b for b, _ in tn), (None,) * len(tn), torch.from_numpy(live), capacity,
+    )
+    vals, fills = _minmax_case(dtype, n, seed=n + 2)
+    contrib = np.random.default_rng(n).random(n) >= 0.3
+    perm = _np(tinfo.perm)
+    for is_min, fill in zip((True, False), fills):
+        vs = np.where(contrib[perm] & live[perm], vals[perm], fill).astype(vals.dtype)
+        got = TK.seg_minmax(
+            torch.from_numpy(vs), tinfo.starts, tinfo.ends, fill, is_min,
+        )
+        assert got.dtype == torch.from_numpy(vs).dtype
+        if n == 0:
+            # the JAX sort_group cannot trace an empty page: every group
+            # of the port's empty result is the fill
+            np.testing.assert_array_equal(got.numpy(), np.full(capacity, fill, vs.dtype))
+            continue
+        jinfo = JK.sort_group(
+            tuple(b for b, _ in jn), (None,) * len(jn), jnp.asarray(live), capacity,
+        )
+        want = JK.seg_minmax_scan(jnp.asarray(vs), jinfo, fill, is_min)
+        # exact, NaN equal to NaN; -0.0 equals 0.0 (the JAX package on
+        # XLA:CPU gives +0.0 for a group holding only -0.0, the port -0.0)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_order_words_float_encoding_matches_jax(dtype):
+    """K10's float words are the JAX ``_float_sort_bits`` (complemented
+    for DESC) with the top bit flipped to signed order."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=999).astype(dtype)
+    x[::5] = np.nan
+    x[1::7] = -0.0
+    x[2::11] = np.inf
+    x[3::13] = -np.inf
+    bits = np.asarray(JK._float_sort_bits(jnp.asarray(x))).astype(np.uint64)
+    width = 64 if dtype == "float64" else 32
+    full = (1 << width) - 1
+    for asc in (True, False):
+        (word,), (flag,), dead = TK.order_words(
+            [(torch.from_numpy(x), None, asc, False)],
+            torch.ones(999, dtype=torch.bool),
+        )
+        assert flag is None and not dead.any()
+        want = [int(b) if asc else full - int(b) for b in bits]
+        got = [int(w) + (1 << (width - 1)) for w in word.numpy()]
+        assert got == want
+
+
+@pytest.mark.parametrize("case", ["keys_nulls", "global", "hash_lane", "empty"])
+def test_dedupe_matches_jax(case):
+    from trino_tpu.exec import stage as JS
+    from trino_tpu_torch.exec import stage as TS
+
+    rng = np.random.default_rng(len(case))
+    n = 0 if case == "empty" else 4096
+    live = rng.random(n) >= 0.2
+    value = rng.integers(0, 40, size=n).astype(np.int64)
+    value_valid = rng.random(n) >= 0.1
+    keys = []
+    widths = (6,)
+    if case in ("keys_nulls", "empty"):
+        keys = [(rng.integers(0, 7, size=n).astype(np.int64), rng.random(n) >= 0.2),
+                (rng.integers(0, 3, size=n).astype(np.int32), None)]
+        widths = (3, 2, 6)
+    if case == "hash_lane":
+        lanes = rng.integers(-(1 << 62), 1 << 62, size=(9, 2))[rng.integers(0, 9, size=n)]
+        value, widths = lanes, (64,)
+    def jx(a):
+        return None if a is None else jnp.asarray(a)
+
+    def tx(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+    v_j = jx(value)[:, 0] if value.ndim == 2 else jx(value)
+    v_t = torch.from_numpy(value)[:, 0] if value.ndim == 2 else tx(value)
+    got = TS._dedupe(
+        [(tx(d), tx(v)) for d, v in keys], (v_t, tx(value_valid)),
+        torch.from_numpy(live), n, widths,
+    )
+    assert got.dtype == torch.bool and got.shape == (n,)
+    if n == 0:
+        return  # the JAX sort_group cannot trace an empty page
+    want = JS._dedupe(
+        [(jx(d), jx(v)) for d, v in keys], (v_j, jx(value_valid)),
+        jnp.asarray(live), n, widths,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -1,5 +1,6 @@
 // Shared helpers of the hand-written kernels: block-wide scans and sums
-// built from warp shuffles (no library collectives).
+// built from warp shuffles (no library collectives), and the key-bit
+// reading that the hashing, packing and ordering kernels share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,6 +64,43 @@ __device__ __forceinline__ T block_sum(T v) {
 
 inline unsigned int blocks_for(long long n, int per_block) {
   return (unsigned int)((n + per_block - 1) / per_block);
+}
+
+// Column element types, as the wrappers in exec/kernels.py number them
+// (_TYPE_CODES).
+enum ColType : int {
+  T_I64 = 0, T_I32 = 1, T_I16 = 2, T_I8 = 3, T_BOOL = 4, T_F64 = 5, T_F32 = 6,
+};
+
+typedef unsigned long long u64;
+
+// The canonical quiet NaN of numpy/torch/jax (float("nan")).
+constexpr u64 NAN64_BITS = 0x7FF8000000000000ull;
+constexpr unsigned int NAN32_BITS = 0x7FC00000u;
+
+// Element i of a column (stride in elements) as the u64 key bits of
+// trino_tpu/exec/kernels.py:_to_bits: integers sign-extend, bools are
+// 0/1, floats are canonicalized (-0.0 -> +0.0, every NaN -> one NaN)
+// and reinterpreted; float32 bits zero-extend.
+__device__ __forceinline__ u64 key_bits(const void* data, int type,
+                                        long long i) {
+  switch (type) {
+    case T_I64: return (u64)((const long long*)data)[i];
+    case T_I32: return (u64)(long long)((const int*)data)[i];
+    case T_I16: return (u64)(long long)((const short*)data)[i];
+    case T_I8: return (u64)(long long)((const signed char*)data)[i];
+    case T_BOOL: return ((const unsigned char*)data)[i] ? 1ull : 0ull;
+    case T_F64: {
+      const double v = ((const double*)data)[i];
+      if (v != v) return NAN64_BITS;
+      return v == 0.0 ? 0ull : (u64)__double_as_longlong(v);
+    }
+    default: {  // T_F32
+      const float v = ((const float*)data)[i];
+      if (v != v) return (u64)NAN32_BITS;
+      return v == 0.0f ? 0ull : (u64)__float_as_uint(v);
+    }
+  }
 }
 
 }  // namespace ttk

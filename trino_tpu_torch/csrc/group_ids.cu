@@ -3,14 +3,19 @@
 // Replaces: trino_tpu/exec/kernels.py:sort_group, the pass after the sort
 // (:243-263): boundary flags -> cumsum -> gid_sorted (clamped to
 // capacity), the inverse permutation, starts/ends by searchsorted, owner
-// and num_groups. The packing of the keys and the stable sort stay torch
-// ops, as the JAX package leaves lax.sort to XLA.
+// and num_groups; and the per-row representative flag of
+// trino_tpu/exec/stage.py:_dedupe (:504), owner[group[i]] == i for a live
+// row i, written as `rep` in the pass that writes group when the caller
+// asks for it (a DISTINCT's dedupe does; a GROUP BY does not pay for the
+// second scattered store). The packing of
+// the keys is K8 pack_words; the stable sort stays torch.sort, as the JAX
+// package leaves lax.sort to XLA.
 //
 // Bound on an H100 (3.35 TB/s): per row it must read the sorted word or
 // the `same` flag (8 or 1 B), live_s (1 B) and perm (8 B) and write
-// gid_sorted and group (8 B each), plus 3 x 8 B per capacity slot: about
-// 33 B/row, so ~0.06 ms at 6M rows and ~0.6 ms at 60M rows. Bytes, not
-// operations, bound it.
+// gid_sorted and group (8 B each) and rep (1 B, when asked for), plus
+// 3 x 8 B per capacity slot: about 33-34 B/row, so ~0.06 ms at 6M rows and ~0.6 ms at
+// 60M rows. Bytes, not operations, bound it.
 //
 // Design: a two-level scan. Pass 1 gives each block a tile of
 // THREADS*ITEMS rows, marks boundaries, scans them within the block and
@@ -18,7 +23,8 @@
 // block) turns tile totals into tile offsets and num_groups. Pass 3
 // adds the offset, writes gid_sorted, scatters group[perm[p]] (the
 // inverse permutation of a sort is a plain scatter here, not a second
-// sort) and records each group's first position. Pass 4 runs over the
+// sort), marks the row at each group's first position as its
+// representative and records that position. Pass 4 runs over the
 // capacity slots: unused slots start at n_live, ends are the next
 // start, owner is perm[start]. Ids are int64 (the port's index type).
 #include <cuda_runtime.h>
@@ -91,13 +97,17 @@ __device__ __forceinline__ long long gid_at(long long q, const long long* gid1,
 __global__ void assign(const long long* gid1, const long long* tile_off,
                        const unsigned char* live, const long long* perm,
                        long long n, long long capacity, long long* gid_sorted,
-                       long long* group, long long* starts, long long* n_live) {
+                       long long* group, unsigned char* rep, long long* starts,
+                       long long* n_live) {
   const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (p >= n) return;
   const long long g = gid_at(p, gid1, tile_off, live, capacity);
   gid_sorted[p] = g;
-  group[perm[p]] = g;
+  const long long row = perm[p];
+  group[row] = g;
   const long long prev = p > 0 ? gid_at(p - 1, gid1, tile_off, live, capacity) : -1;
+  // the representative of a group is the row at its first sorted position
+  if (rep != nullptr) rep[row] = (g != prev && g < capacity) ? 1 : 0;
   if (g != prev) {
     // gid_sorted is non-decreasing: each id < capacity starts once, and
     // the first position at capacity (dead or overflow rows) is unique
@@ -131,12 +141,14 @@ __global__ void slots(long long* starts, long long* ends, long long* owner,
 // words: sorted packed key words (or null, then `same` flags are read);
 // live: live_s flags in sorted order; perm: the sort permutation.
 // Scratch: gid1 [n], tile_sums [ceil(n / TILE)]. Outputs: gid_sorted [n],
-// group [n], starts/ends/owner [capacity], num_groups [1], n_live [1]
-// (n_live must hold n on entry). Returns cudaGetLastError().
+// group [n], rep [n] (bool; null when not wanted), starts/ends/owner
+// [capacity], num_groups [1], n_live [1] (n_live must hold n on entry).
+// Returns cudaGetLastError().
 extern "C" int group_ids_launch(const void* words, const void* same,
                                 const void* live, const void* perm, long long n,
                                 long long capacity, void* gid1, void* tile_sums,
-                                void* gid_sorted, void* group, void* starts,
+                                void* gid_sorted, void* group, void* rep,
+                                void* starts,
                                 void* ends, void* owner, void* num_groups,
                                 void* n_live, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -152,8 +164,8 @@ extern "C" int group_ids_launch(const void* words, const void* same,
     assign<<<ttk::blocks_for(n, THREADS), THREADS, 0, s>>>(
         (const long long*)gid1, (const long long*)tile_sums,
         (const unsigned char*)live, (const long long*)perm, n, capacity,
-        (long long*)gid_sorted, (long long*)group, (long long*)starts,
-        (long long*)n_live);
+        (long long*)gid_sorted, (long long*)group, (unsigned char*)rep,
+        (long long*)starts, (long long*)n_live);
   }
   if (capacity > 0) {
     slots<<<ttk::blocks_for(capacity, THREADS), THREADS, 0, s>>>(

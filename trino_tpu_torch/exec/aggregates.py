@@ -2,9 +2,11 @@
 of ``trino_tpu/exec/aggregates.py`` for count, sum, avg, min and max
 (decimal included, with exact two-limb sums).
 
-``kernels.sort_group`` leaves each group as one contiguous run of the
+``kernels.group_by`` leaves each group as one contiguous run of the
 sorted row order, so every sum is a gather into sorted order plus a
-segmented sum (``kernels.seg_sum_ranges``, the K2 kernel on the card).
+segmented sum (``kernels.seg_sum_ranges``, the K2 kernel on the card),
+and every min/max one plus a segmented min/max (``kernels.seg_minmax``,
+K9).
 Work shared between the aggregates of one GROUP BY (the gather of a
 column into group order, per-group counts, contribution masks) is
 deduplicated through a per-step ``share`` cache keyed by object
@@ -116,24 +118,18 @@ class _Reducer:
         return hit[1]
 
     def minmax(self, data, fill, is_min: bool):
-        """Per-group min/max (the JAX package's segmented scan read at
-        each group's end; here a scatter-reduce by sorted group id)."""
-        fill = torch.as_tensor(fill, dtype=data.dtype, device=data.device)
+        """Per-group min/max: the contribution-masked values in group
+        order through ``seg_minmax`` (K9 on the card), as the JAX
+        package's segmented scan read at each group's end."""
+        fill_t = torch.as_tensor(fill, dtype=data.dtype, device=data.device)
         if self.info is None:
-            masked = torch.where(self.contrib, data, fill)
+            masked = torch.where(self.contrib, data, fill_t)
             red = torch.amin if is_min else torch.amax
             return red(masked, dim=0)[None]
-        masked = torch.where(self.contrib_s, self._sorted(data), fill)
-        out = torch.full(
-            (self.capacity + 1,), fill.item(), dtype=data.dtype,
-            device=data.device,
+        masked = torch.where(self.contrib_s, self._sorted(data), fill_t)
+        return K.seg_minmax(
+            masked, self.info.starts, self.info.ends, fill, is_min,
         )
-        out.scatter_reduce_(
-            0, self.info.gid_sorted, masked,
-            reduce="amin" if is_min else "amax", include_self=True,
-        )
-        out = out[: self.capacity]
-        return torch.where(self.info.ends > self.info.starts, out, fill)
 
 
 def compute_aggregate(

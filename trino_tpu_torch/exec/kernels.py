@@ -2,11 +2,12 @@
 ``trino_tpu/exec/kernels.py``.
 
 Everything is a whole-column computation on tensors of the executor's
-device. Six functions have hand-written CUDA kernels (``csrc/``), each
+device. Ten functions have hand-written CUDA kernels (``csrc/``), each
 beside its plain torch version:
 
 - ``group_ids`` (K1): dense group ids, the inverse permutation and the
-  group ranges after the key sort of ``sort_group``;
+  group ranges after the key sort of ``group_by`` (and, for a
+  DISTINCT's dedupe, each group's representative row);
 - ``seg_sum`` (K2): per-group sums over group-sorted values, the core of
   ``seg_sum_ranges``;
 - ``join_probe`` (K3): per-probe match ranges of ``join_ranges``;
@@ -14,7 +15,16 @@ beside its plain torch version:
 - ``range_any`` (K5): per-probe "any live expanded match" (semi joins,
   the probe-unmatched rows of outer joins);
 - ``scatter_any`` (K6): per-build-row "any live match" (the
-  build-unmatched rows of full outer joins).
+  build-unmatched rows of full outer joins);
+- ``hash_keys`` (K7): the combined 64-bit hash of multi-key join keys
+  (``hash_columns`` with ``normalize_key`` folded in);
+- ``pack_keys`` (K8, ``csrc/pack_words.cu``): GROUP BY and DISTINCT
+  keys, null flags and the live bit packed into sort words
+  (``_pack_words`` with ``normalize_key`` folded in);
+- ``seg_minmax`` (K9): per-group min/max over group-sorted values
+  (``seg_minmax_scan``);
+- ``order_words`` (K10): the ORDER BY words, null-flag and dead-row
+  bytes of ``sort_perm``, whose sorts stay ``torch.sort``.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (and adds one to its ``launches`` count)
@@ -38,6 +48,7 @@ Conventions of the port:
 
 from __future__ import annotations
 
+import struct
 from typing import NamedTuple
 
 import torch
@@ -45,16 +56,24 @@ import torch
 from trino_tpu_torch.exec import native
 
 __all__ = [
-    "hash_columns",
+    "hash_keys",
+    "hash_keys_plain",
     "normalize_key",
     "limb_parts",
     "GroupInfo",
+    "group_by",
     "sort_group",
+    "pack_keys",
+    "pack_keys_plain",
     "group_ids",
     "group_ids_plain",
     "seg_sum",
     "seg_sum_plain",
     "seg_sum_ranges",
+    "seg_minmax",
+    "seg_minmax_plain",
+    "order_words",
+    "order_words_plain",
     "sort_perm",
     "join_ranges",
     "join_probe",
@@ -111,6 +130,51 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, length: int | None = 
         raise ValueError(f"{name}: expected shape ({length},), got {tuple(t.shape)}")
 
 
+#: column element type codes of the kernels (``ColType`` in csrc/common.cuh)
+_TYPE_CODES = {
+    torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
+    torch.bool: 4, torch.float64: 5, torch.float32: 6,
+}
+#: most key columns one launch of K7 or K10 takes (their MAX_PARTS and
+#: MAX_KEYS); K8 packs one word, at most 64 keys, per launch
+MAX_KEY_PARTS = 32
+
+
+def _col_desc(name: str, data: torch.Tensor, valid, n: int) -> list[int]:
+    """[data pointer, validity pointer (0 = none), stride, type code] of
+    one 1-D key column for a kernel's descriptor table. The data may be
+    strided (a limb of a two-limb decimal, a hash lane) or broadcast
+    (stride 0); the validity must be a contiguous bool row mask (see
+    ``_dense_valid``)."""
+    code = _TYPE_CODES.get(data.dtype)
+    if code is None:
+        raise TypeError(f"{name}: unsupported key dtype {data.dtype}")
+    if data.dim() != 1 or data.shape[0] != n:
+        raise ValueError(f"{name}: expected shape ({n},), got {tuple(data.shape)}")
+    if valid is not None:
+        _check(f"{name}.valid", valid, torch.bool, n)
+    return [
+        data.data_ptr(), 0 if valid is None else valid.data_ptr(),
+        data.stride(0), code,
+    ]
+
+
+def _dense_valid(cols):
+    """Key columns with each validity mask made contiguous (a broadcast
+    NULL literal's is a stride-0 view); the returned list keeps the
+    copies alive while a kernel reads them."""
+    return [
+        (d, None if v is None else v.contiguous(), *rest)
+        for d, v, *rest in cols
+    ]
+
+
+def _host_table(rows: list[list[int]]) -> torch.Tensor:
+    """A descriptor table as a host int64 tensor (the launcher copies it
+    into a by-value kernel parameter before it returns)."""
+    return torch.tensor(rows, dtype=I64).reshape(len(rows), -1).contiguous()
+
+
 # ---- hashing / key normalization ------------------------------------------
 
 
@@ -159,14 +223,43 @@ def normalize_key(data: torch.Tensor, valid: torch.Tensor | None):
     return torch.where(valid, bits, torch.zeros_like(bits)), ~valid
 
 
-def hash_columns(cols) -> torch.Tensor:
-    """Combined 64-bit hash of key columns (nulls hash to a salt)."""
+def hash_keys_plain(cols) -> torch.Tensor:
+    """Plain torch version of K7 (port of ``kernels.py:hash_columns``):
+    the combined 64-bit hash of key columns, NULLs hashing to a salt."""
     h = torch.zeros(cols[0][0].shape[0], dtype=I64, device=cols[0][0].device)
     for data, valid in cols:
         bits, isnull = normalize_key(data, valid)
         bits = torch.where(isnull, torch.full_like(bits, _NULL_SALT), bits)
         h = _mix64(h ^ _mix64(bits))
     return h
+
+
+def hash_keys(cols) -> torch.Tensor:
+    """K7 wrapper: the combined 64-bit hash (u64 bits in int64) of the
+    1-D key columns ``[(data, valid|None), ...]``; plain version on the
+    CPU, CUDA kernel (``csrc/hash_keys.cu``) on the card, one launch per
+    batch of up to ``MAX_KEY_PARTS`` columns (a batch continues the
+    previous batch's hash)."""
+    if _on_cpu(*(t for col in cols for t in col)):
+        return hash_keys_plain(cols)
+    cols = _dense_valid(cols)
+    n = cols[0][0].shape[0]
+    dev = cols[0][0].device
+    h = None
+    for lo in range(0, len(cols), MAX_KEY_PARTS):
+        batch = cols[lo: lo + MAX_KEY_PARTS]
+        desc = _host_table([
+            _col_desc(f"hash_keys[{lo + i}]", d, v, n)
+            for i, (d, v) in enumerate(batch)
+        ])
+        out = torch.empty(n, dtype=I64, device=dev)
+        native.call("hash_keys", "hash_keys_launch", desc, len(batch), h, n, out)
+        hash_keys.launches += 1
+        h = out
+    return h
+
+
+hash_keys.launches = 0
 
 
 def _argsort_u64(x: torch.Tensor) -> torch.Tensor:
@@ -183,7 +276,11 @@ def _argsort_flag(x: torch.Tensor) -> torch.Tensor:
 
 class GroupInfo(NamedTuple):
     """Sorted-group context shared by every aggregate over one GROUP BY
-    (field meanings as in the JAX package; all int64)."""
+    (the first seven fields as in the JAX package; all int64). ``rep``
+    (bool, per row; None unless asked for with ``with_rep``) marks each
+    group's representative: the row at the group's first sorted
+    position, ``owner[group[i]] == i`` for a live row ``i`` (what
+    ``stage.py:_dedupe`` keeps)."""
 
     perm: torch.Tensor
     gid_sorted: torch.Tensor
@@ -192,6 +289,7 @@ class GroupInfo(NamedTuple):
     ends: torch.Tensor
     owner: torch.Tensor
     num_groups: torch.Tensor
+    rep: torch.Tensor
 
 
 def sort_group(
@@ -201,13 +299,36 @@ def sort_group(
     capacity: int,
     widths=None,
     pre_perm: torch.Tensor | None = None,
+    with_rep: bool = False,
+) -> GroupInfo:
+    """Exact multi-key grouping over normalized key bits and null flags
+    (the signature of ``kernels.py:sort_group``): ``group_by`` over the
+    columns ``(bits, ~flag)``, whose normalization leaves the bits as
+    they are."""
+    cols = [
+        (b, None if f is None else ~f) for b, f in zip(norm_bits, null_flags)
+    ]
+    return group_by(cols, live, capacity, widths, pre_perm, with_rep)
+
+
+def group_by(
+    cols,
+    live: torch.Tensor,
+    capacity: int,
+    widths=None,
+    pre_perm: torch.Tensor | None = None,
+    with_rep: bool = False,
 ) -> GroupInfo:
     """Exact multi-key grouping by lexsort + boundary cumsum (port of
-    ``kernels.py:sort_group``). The pack and the sorts are torch ops;
-    everything after the sort is ``group_ids`` (K1)."""
+    ``kernels.py:sort_group``) over raw key columns
+    ``[(data, valid|None), ...]``. With widths, ``pack_keys`` (K8)
+    normalizes and packs the keys into sort words; the sorts are
+    ``torch.sort``; everything after the sort is ``group_ids`` (K1),
+    which also marks each group's representative row when
+    ``with_rep``."""
     n = live.shape[0]
     dev = live.device
-    words = _pack_words(norm_bits, null_flags, live, widths)
+    words = pack_keys(cols, live, widths)
     if words is not None:
         packed_words, live_folded, total_bits = words
         if pre_perm is None and len(packed_words) == 1 and live_folded:
@@ -216,7 +337,7 @@ def sort_group(
             flipped, perm = torch.sort(packed_words[0] ^ _SIGN, stable=True)
             ps = (flipped ^ _SIGN).contiguous()
             live_s = _shr(ps, total_bits) == 0
-            return group_ids(ps, None, live_s, perm, capacity)
+            return group_ids(ps, None, live_s, perm, capacity, with_rep)
         perm = (
             torch.arange(n, dtype=I64, device=dev)
             if pre_perm is None else pre_perm.to(I64)
@@ -230,12 +351,16 @@ def sort_group(
         for w in packed_words:
             ws = w[perm]
             same = same & (ws == torch.roll(ws, 1))
-        return group_ids(None, same, live_s, perm, capacity)
+        return group_ids(None, same, live_s, perm, capacity, with_rep)
+    norm = [
+        (b, None if v is None else f)
+        for (b, f), (_, v) in zip((normalize_key(d, v) for d, v in cols), cols)
+    ]
     perm = (
         torch.arange(n, dtype=I64, device=dev)
         if pre_perm is None else pre_perm.to(I64)
     )
-    for bits, flag in reversed(list(zip(norm_bits, null_flags))):
+    for bits, flag in reversed(norm):
         perm = perm[_argsort_u64(bits[perm])]
         if flag is not None:
             perm = perm[_argsort_flag(flag[perm])]
@@ -243,53 +368,118 @@ def sort_group(
     perm = perm[_argsort_flag((~live)[perm])]
     live_s = live[perm]
     same = torch.ones(n, dtype=torch.bool, device=dev)
-    for bits, flag in zip(norm_bits, null_flags):
+    for bits, flag in norm:
         bs = bits[perm]
         same = same & (bs == torch.roll(bs, 1))
         if flag is not None:
             fs = flag[perm]
             same = same & (fs == torch.roll(fs, 1))
-    return group_ids(None, same, live_s, perm, capacity)
+    return group_ids(None, same, live_s, perm, capacity, with_rep)
+
+
+def _word_layout(needs):
+    """The greedy chunking of keys into <= 64-bit words, significance
+    order kept (as ``kernels.py:_pack_words``): ``needs`` holds each key's
+    (width, flagged). Returns (word index per key, number of words,
+    live_folded, total_bits) or None when a single key needs more than
+    64 bits. ``total_bits`` counts the last word's key and flag bits;
+    liveness folds in above them when the pack is one word with a bit to
+    spare."""
+    word_of: list[int] = []
+    cur_bits = 0
+    n_words = 0
+    for w, flagged in needs:
+        need = w + (1 if flagged else 0)
+        if need > 64:
+            return None  # a single over-wide key defeats packing
+        if n_words == 0 or cur_bits + need > 64:
+            n_words += 1
+            cur_bits = 0
+        word_of.append(n_words - 1)
+        cur_bits += need
+    live_folded = n_words == 1 and cur_bits + 1 <= 64
+    return word_of, n_words, live_folded, cur_bits
 
 
 def _pack_words(norm_bits, null_flags, live, widths):
     """(packed_words, live_folded, total_bits), or None when no widths
     are known — the keys packed into as few u64 sort words as possible
     (port of ``kernels.py:_pack_words``, words carried in int64)."""
-    if widths is None:
+    if not widths:
         return None
-    keys = list(zip(norm_bits, null_flags, widths))
-    chunks: list[list] = []
-    cur: list = []
-    cur_bits = 0
-    for bits, flag, w in keys:
-        need = w + (0 if flag is None else 1)
-        if need > 64:
-            return None  # a single over-wide key defeats packing
-        if cur and cur_bits + need > 64:
-            chunks.append(cur)
-            cur, cur_bits = [], 0
-        cur.append((bits, flag, w))
-        cur_bits += need
-    if cur:
-        chunks.append(cur)
-    one_word = len(chunks) == 1
-    live_folded = one_word and cur_bits + 1 <= 64
-    words = []
-    for ci, chunk in enumerate(chunks):
+    layout = _word_layout(
+        [(w, f is not None) for w, f in zip(widths, null_flags)]
+    )
+    if layout is None:
+        return None
+    word_of, n_words, live_folded, total_bits = layout
+    words: list = [None] * n_words
+    if live_folded:
         # start from the liveness bit (or the first key): a shift by the
         # full 64-bit width never happens
-        packed = (~live).to(I64) if live_folded and ci == 0 else None
-        for bits, flag, w in chunk:
-            piece = bits & ((1 << w) - 1) if w < 64 else bits
-            packed = piece if packed is None else (packed << w) | piece
-            if flag is not None:
-                packed = (packed << 1) | flag.to(I64)
-        words.append(packed)
-    return words, live_folded, cur_bits
+        words[0] = (~live).to(I64)
+    for bits, flag, w, wi in zip(norm_bits, null_flags, widths, word_of):
+        piece = bits & ((1 << w) - 1) if w < 64 else bits
+        words[wi] = piece if words[wi] is None else (words[wi] << w) | piece
+        if flag is not None:
+            words[wi] = (words[wi] << 1) | flag.to(I64)
+    return words, live_folded, total_bits
 
 
-def group_ids_plain(words, same, live_s, perm, capacity: int) -> GroupInfo:
+def pack_keys_plain(cols, live, widths):
+    """Plain torch version of K8: ``normalize_key`` on each key column,
+    NULL flags only for nullable keys, then ``_pack_words``."""
+    norm = [normalize_key(d, v) for d, v in cols]
+    return _pack_words(
+        tuple(b for b, _ in norm),
+        tuple(None if v is None else f for (_, f), (_, v) in zip(norm, cols)),
+        live, widths,
+    )
+
+
+def pack_keys(cols, live: torch.Tensor, widths):
+    """K8 wrapper: the key columns ``[(data, valid|None), ...]``
+    normalized and packed with their null flags (and the live bit, when
+    it fits) into u64 sort words carried in int64, as
+    ``(words, live_folded, total_bits)``; None when no widths are known
+    or a key is too wide to pack. Plain version on the CPU, CUDA kernel
+    (``csrc/pack_words.cu``) on the card: one launch per word."""
+    if not widths:
+        return None
+    layout = _word_layout(
+        [(w, v is not None) for w, (_, v) in zip(widths, cols)]
+    )
+    if layout is None:
+        return None
+    if _on_cpu(live, *(t for col in cols for t in col)):
+        return pack_keys_plain(cols, live, widths)
+    word_of, n_words, live_folded, total_bits = layout
+    cols = _dense_valid(cols)
+    n = live.shape[0]
+    _check("pack_keys.live", live, torch.bool, n)
+    words = []
+    for wi in range(n_words):
+        keys = [i for i, x in enumerate(word_of) if x == wi]
+        desc = _host_table([
+            _col_desc(f"pack_keys[{i}]", *cols[i], n)
+            + [int(widths[i]), int(cols[i][1] is not None)]
+            for i in keys
+        ])
+        out = torch.empty(n, dtype=I64, device=live.device)
+        native.call(
+            "pack_words", "pack_words_launch", desc, len(keys), live,
+            int(live_folded), n, out,
+        )
+        pack_keys.launches += 1
+        words.append(out)
+    return words, live_folded, total_bits
+
+
+pack_keys.launches = 0
+
+
+def group_ids_plain(words, same, live_s, perm, capacity: int,
+                    with_rep: bool = False) -> GroupInfo:
     """Plain torch version of K1: the tail of ``sort_group`` after the
     sort. ``words`` are the sorted packed words (adjacent compare gives
     the run flags) or None, then ``same`` holds them."""
@@ -311,6 +501,10 @@ def group_ids_plain(words, same, live_s, perm, capacity: int) -> GroupInfo:
     starts = torch.full((capacity + 1,), 0, dtype=I64, device=dev)
     starts[:] = n_live
     first = (gid_sorted != torch.roll(gid_sorted, 1)) | (pos == 0)
+    rep = None
+    if with_rep:
+        rep = torch.empty(n, dtype=torch.bool, device=dev)
+        rep[perm] = first & (gid_sorted < capacity)
     at = torch.nonzero(first & (gid_sorted < capacity)).reshape(-1)
     starts[gid_sorted[at]] = at
     starts = starts[:capacity]
@@ -322,14 +516,17 @@ def group_ids_plain(words, same, live_s, perm, capacity: int) -> GroupInfo:
         )
     else:
         owner = torch.zeros(capacity, dtype=I64, device=dev)
-    return GroupInfo(perm, gid_sorted, group, starts, ends, owner, num_groups)
+    return GroupInfo(
+        perm, gid_sorted, group, starts, ends, owner, num_groups, rep
+    )
 
 
-def group_ids(words, same, live_s, perm, capacity: int) -> GroupInfo:
+def group_ids(words, same, live_s, perm, capacity: int,
+              with_rep: bool = False) -> GroupInfo:
     """K1 wrapper: plain version for CPU tensors, CUDA kernel
     (``csrc/group_ids.cu``) for CUDA tensors."""
     if _on_cpu(live_s, perm):
-        return group_ids_plain(words, same, live_s, perm, capacity)
+        return group_ids_plain(words, same, live_s, perm, capacity, with_rep)
     n = live_s.shape[0]
     _check("group_ids.live_s", live_s, torch.bool, n)
     _check("group_ids.perm", perm, I64, n)
@@ -345,17 +542,20 @@ def group_ids(words, same, live_s, perm, capacity: int) -> GroupInfo:
 
     gid1, tile_sums = empty(n), empty(tiles)
     gid_sorted, group = empty(n), empty(n)
+    rep = torch.empty(n, dtype=torch.bool, device=dev) if with_rep else None
     starts, ends, owner = empty(capacity), empty(capacity), empty(capacity)
     num_groups = torch.empty((), dtype=I64, device=dev)
     n_live = torch.full((1,), n, dtype=I64, device=dev)
     native.call(
         "group_ids", "group_ids_launch",
         words, None if words is not None else same, live_s, perm, n,
-        capacity, gid1, tile_sums, gid_sorted, group, starts, ends, owner,
-        num_groups, n_live,
+        capacity, gid1, tile_sums, gid_sorted, group, rep, starts, ends,
+        owner, num_groups, n_live,
     )
     group_ids.launches += 1
-    return GroupInfo(perm, gid_sorted, group, starts, ends, owner, num_groups)
+    return GroupInfo(
+        perm, gid_sorted, group, starts, ends, owner, num_groups, rep
+    )
 
 
 group_ids.launches = 0
@@ -426,6 +626,88 @@ def seg_sum_ranges(vals_sorted: torch.Tensor, info: GroupInfo, zero=None):
     return seg_sum(vals_sorted.to(I64), info.starts, info.ends).to(dtype)
 
 
+def _minmax_pair(a: torch.Tensor, b: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """``jnp.minimum``/``jnp.maximum`` elementwise: NaN propagates and
+    -0.0 is below +0.0 (so the result does not depend on the order of a
+    reduction)."""
+    if not a.dtype.is_floating_point:
+        return torch.minimum(a, b) if is_min else torch.maximum(a, b)
+    if is_min:
+        pick_b = (b < a) | ((b == a) & torch.signbit(b))
+    else:
+        pick_b = (b > a) | ((b == a) & ~torch.signbit(b))
+    out = torch.where(pick_b, b, a)
+    nan = torch.isnan(a) | torch.isnan(b)
+    return torch.where(nan, torch.full_like(out, float("nan")), out)
+
+
+def seg_minmax_plain(vals: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+                     fill, is_min: bool) -> torch.Tensor:
+    """Plain torch version of K9 (port of ``kernels.py:seg_minmax_scan``):
+    a segmented inclusive scan (log-step, each position combining with
+    the one ``d`` back while both lie in one group) read at each group's
+    last position; empty groups give ``fill``. Groups are dense and
+    contiguous: ``ends[g] == starts[g + 1]``."""
+    cap = starts.shape[0]
+    fill_t = torch.tensor(fill, dtype=vals.dtype, device=vals.device)
+    n_end = int(ends[-1]) if cap else 0
+    if n_end == 0:
+        return fill_t.expand(cap).clone()
+    # group of position p = number of groups ending at or before p
+    marks = torch.zeros(n_end + 1, dtype=I64, device=vals.device)
+    marks.index_add_(0, ends.clamp(max=n_end), torch.ones_like(ends))
+    seg = torch.cumsum(marks[:n_end], 0)
+    m = vals[:n_end]
+    d = 1
+    while d < n_end:
+        joined = _minmax_pair(m[:-d], m[d:], is_min)
+        m = torch.cat([m[:d], torch.where(seg[d:] == seg[:-d], joined, m[d:])])
+        d <<= 1
+    out = m[(ends - 1).clamp(0, n_end - 1)]
+    return torch.where(ends > starts, out, fill_t)
+
+
+#: value dtype -> the accumulator dtype K9 writes (narrow integers widen)
+_MINMAX_ACC = {
+    torch.int64: torch.int64, torch.int32: torch.int32,
+    torch.int16: torch.int32, torch.int8: torch.int32,
+    torch.float64: torch.float64, torch.float32: torch.float32,
+}
+
+
+def seg_minmax(vals: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+               fill, is_min: bool) -> torch.Tensor:
+    """K9 wrapper: per-group min (``is_min``) or max of group-sorted
+    values whose non-contributing rows hold ``fill``, over dense
+    contiguous ranges; empty groups give ``fill``. Plain version on the
+    CPU, CUDA kernel (``csrc/seg_minmax.cu``) on the card."""
+    if _on_cpu(vals, starts, ends):
+        return seg_minmax_plain(vals, starts, ends, fill, is_min)
+    acc = _MINMAX_ACC.get(vals.dtype)
+    if acc is None:
+        raise TypeError(f"seg_minmax: unsupported values {vals.dtype}")
+    cap = starts.shape[0]
+    _check("seg_minmax.vals", vals, vals.dtype, vals.shape[0])
+    _check("seg_minmax.ends", ends, I64, cap)
+    out = torch.full((cap,), fill, dtype=acc, device=vals.device)
+    if acc == torch.float64:
+        fill_bits = struct.unpack("<q", struct.pack("<d", float(fill)))[0]
+    elif acc == torch.float32:
+        fill_bits = struct.unpack("<I", struct.pack("<f", float(fill)))[0]
+    else:
+        fill_bits = int(fill)
+    native.call(
+        "seg_minmax", "seg_minmax_launch", vals, ends,
+        _TYPE_CODES[vals.dtype], vals.shape[0], cap, fill_bits, int(is_min),
+        out,
+    )
+    seg_minmax.launches += 1
+    return out if acc == vals.dtype else out.to(vals.dtype)
+
+
+seg_minmax.launches = 0
+
+
 def blocked_sum(x: torch.Tensor) -> torch.Tensor:
     """Scalar int64 sum (the JAX blocked form only works around an XLA
     compiler bug)."""
@@ -440,33 +722,110 @@ def count_true(mask: torch.Tensor) -> torch.Tensor:
 # ---- sorting ---------------------------------------------------------------
 
 
-def sort_perm(keys, live: torch.Tensor) -> torch.Tensor:
-    """Permutation ordering rows by the sort keys, dead rows last.
+#: key dtypes whose ORDER BY word is int64 (every other key: int32)
+_WIDE_KEYS = (torch.int64, torch.float64)
 
-    Each key is (data, valid, ascending, nulls_first); iterated stable
-    argsorts, two passes per key — data then null flag."""
-    n = live.shape[0]
-    perm = torch.arange(n, dtype=I64, device=live.device)
-    for data, valid, ascending, nulls_first in reversed(keys):
+
+def order_words_plain(keys, live: torch.Tensor):
+    """Plain torch version of K10: (words, flags, dead) for ``sort_perm``.
+
+    Per key (data, valid, ascending, nulls_first): its order word, whose
+    signed order is the key's order — integers as they are or negated in
+    their own width for DESC (wrapping, as the JAX package's ``-x``),
+    bools 0/1 or complemented, floats as ``_float_sort_bits``
+    (complemented for DESC) with the top bit flipped to signed order;
+    int64 for 64-bit keys, int32 otherwise. Its null-flag bytes (1 =
+    NULL, -1 when NULLs come first), None for a key without validity.
+    Then the dead-row bytes."""
+    words, flags = [], []
+    for data, valid, ascending, nulls_first in keys:
         if data.dtype.is_floating_point:
             kd = _float_sort_bits(data)
             if data.dtype == torch.float64:
                 if not ascending:
                     kd = ~kd
                 kd = kd ^ _SIGN  # unsigned order as signed
-            elif not ascending:
-                kd = kd ^ 0xFFFFFFFF  # 32-bit complement, stays >= 0
+            else:
+                if not ascending:
+                    kd = kd ^ 0xFFFFFFFF  # 32-bit complement
+                kd = (kd - (1 << 31)).to(torch.int32)
+        elif data.dtype == torch.bool:
+            kd = (data if ascending else ~data).to(torch.int32)
         else:
             kd = data if ascending else _invert(data)
-            if kd.dtype == torch.bool:
-                kd = kd.to(torch.int8)
-        perm = perm[torch.sort(kd[perm], stable=True).indices]
+            if kd.dtype != I64:
+                kd = kd.to(torch.int32)
+        words.append(kd)
+        flag = None
         if valid is not None:
             flag = (~valid).to(torch.int8)  # 1 = null
             if nulls_first:
                 flag = -flag
+        flags.append(flag)
+    return words, flags, (~live).to(torch.int8)
+
+
+def order_words(keys, live: torch.Tensor):
+    """K10 wrapper: the ORDER BY words, null flags and dead-row bytes of
+    ``sort_perm`` (see ``order_words_plain``) in one pass; plain version
+    on the CPU, CUDA kernel (``csrc/order_words.cu``) on the card, one
+    launch per ``MAX_KEY_PARTS`` keys (each also writes the same dead
+    bytes)."""
+    if _on_cpu(live, *(t for d, v, _a, _f in keys for t in (d, v))):
+        return order_words_plain(keys, live)
+    keys = _dense_valid(keys)
+    n = live.shape[0]
+    _check("order_words.live", live, torch.bool, n)
+    dev = live.device
+    words, flags = [], []
+    dead = torch.empty(n, dtype=torch.int8, device=dev)
+    batches = [
+        keys[lo: lo + MAX_KEY_PARTS]
+        for lo in range(0, max(len(keys), 1), MAX_KEY_PARTS)
+    ]
+    for bi, batch in enumerate(batches):
+        rows = []
+        for i, (data, valid, ascending, nulls_first) in enumerate(batch):
+            col = _col_desc(f"order_words[{bi * MAX_KEY_PARTS + i}]", data, valid, n)
+            wd = I64 if data.dtype in _WIDE_KEYS else torch.int32
+            word = torch.empty(n, dtype=wd, device=dev)
+            flag = (
+                None if valid is None
+                else torch.empty(n, dtype=torch.int8, device=dev)
+            )
+            words.append(word)
+            flags.append(flag)
+            rows.append([
+                col[0], col[1], word.data_ptr(),
+                0 if flag is None else flag.data_ptr(), col[2], col[3],
+                int(bool(ascending)), int(bool(nulls_first)),
+            ])
+        desc = _host_table(rows) if rows else torch.zeros((1, 8), dtype=I64)
+        native.call(
+            "order_words", "order_words_launch", desc, len(rows), live, n, dead,
+        )
+        order_words.launches += 1
+    return words, flags, dead
+
+
+order_words.launches = 0
+
+
+def sort_perm(keys, live: torch.Tensor) -> torch.Tensor:
+    """Permutation ordering rows by the sort keys, dead rows last.
+
+    Each key is (data, valid, ascending, nulls_first). ``order_words``
+    (K10) builds every key's order word and null-flag bytes and the
+    dead-row bytes in one pass; then iterated stable ``torch.sort``
+    passes, last key first, two per key — data then null flag — and the
+    dead pass last, as in the JAX package."""
+    n = live.shape[0]
+    words, flags, dead = order_words(keys, live)
+    perm = torch.arange(n, dtype=I64, device=live.device)
+    for kd, flag in reversed(list(zip(words, flags))):
+        perm = perm[torch.sort(kd[perm], stable=True).indices]
+        if flag is not None:
             perm = perm[torch.sort(flag[perm], stable=True).indices]
-    dead = (~live).to(torch.int8)
     return perm[torch.sort(dead[perm], stable=True).indices]
 
 
@@ -730,6 +1089,10 @@ KERNELS = {
     "expand_matches": expand_matches,
     "range_any": range_any,
     "scatter_any": scatter_any,
+    "hash_keys": hash_keys,
+    "pack_words": pack_keys,
+    "seg_minmax": seg_minmax,
+    "order_words": order_words,
 }
 
 

@@ -1,6 +1,5 @@
 """Single-fragment plan execution over device pages — the port of
-``trino_tpu/exec/local.py`` for the TPC-H path that needs no string
-predicates and no cross join.
+``trino_tpu/exec/local.py`` for the TPC-H path.
 
 Each plan node consumes whole device Pages and produces one. Host syncs
 happen only at capacity decisions (aggregate overflow flags, join
@@ -8,6 +7,7 @@ fan-out, live-row counts), as in the JAX package. Implemented nodes:
 TableScan (VARCHAR dictionary- or hash-coded), the fused
 Filter/Project/Aggregate/Sort/TopN/Limit chains, inner, LEFT, RIGHT and
 FULL equi-Join (dynamic filtering for inner joins, residual filters),
+the cross join,
 SemiJoin (IN, NOT IN, EXISTS and NOT EXISTS, with and without a
 correlated residual filter, IN with three-valued NULL semantics),
 Exchange, Values and Output. Every other node type raises
@@ -394,14 +394,46 @@ class LocalExecutor:
                 filter=node.filter,
                 df_range_keep=None, df_keep_frac=None,
             )
-        if node.kind not in ("inner", "left", "full") or not node.criteria:
+        if node.kind != "cross" and (
+            node.kind not in ("inner", "left", "full") or not node.criteria
+        ):
             raise NotImplementedError(
                 f"_Join: {node.kind} join"
                 + ("" if node.criteria else " without equi-criteria")
             )
         left = self._compact(self.execute(node.left))
         right = self._compact(self.execute(node.right))
+        if node.kind == "cross":
+            return self._cross_join(node, left, right)
         return self._equi_join(node, left, right)
+
+    def _cross_join(self, node: P.Join, left: Page, right: Page) -> Page:
+        """Every (left row, right row) pair of two compacted pages, at a
+        bucketed capacity: output position j pairs left row j // n_r with
+        right row j % n_r."""
+        from trino_tpu_torch import session_properties as SP
+
+        n_l, n_r = left.num_rows(), right.num_rows()
+        limit = int(SP.get(self.session, "cross_join_chunk_rows"))
+        if n_l * n_r > limit and max(n_l, n_r) > 1:
+            raise NotImplementedError(
+                "_cross_join: the chunked cross join beyond "
+                "cross_join_chunk_rows (needs the host spill tier)"
+            )
+        cap = shapes.bucket(max(n_l * n_r, 1))
+        j = torch.arange(cap, dtype=I64, device=self.device)
+        li = (j // max(n_r, 1)).clamp(0, max(left.capacity - 1, 0))
+        ri = (j % max(n_r, 1)).clamp(0, max(right.capacity - 1, 0))
+        names, cols = [], []
+        for page, idx in ((left, li), (right, ri)):
+            for nm, c in zip(page.names, page.columns):
+                names.append(nm)
+                cols.append(Column(
+                    c.type, c.data[idx],
+                    None if c.valid is None else c.valid[idx],
+                    c.dictionary, c.hash_pool,
+                ))
+        return Page(names, cols, j < n_l * n_r, known_rows=n_l * n_r, packed=True)
 
     def _unify_join_dicts(self, probe: Page, build: Page, criteria):
         """Remap VARCHAR key pairs onto shared dictionaries. Hash-coded
@@ -448,8 +480,8 @@ class LocalExecutor:
             bk, _ = K.normalize_key(b_parts[0], None)
             verify = False
         else:
-            pk = K.hash_columns([(d, None) for d in p_parts])
-            bk = K.hash_columns([(d, None) for d in b_parts])
+            pk = K.hash_keys([(d, None) for d in p_parts])
+            bk = K.hash_keys([(d, None) for d in b_parts])
             verify = True
         pairs = list(zip(p_parts, b_parts))
         return pk, bk, pv, bv, pairs, verify

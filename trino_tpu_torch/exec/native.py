@@ -34,6 +34,10 @@ SOURCES = {
     "expand_matches": "expand_matches.cu",
     "range_any": "range_any.cu",
     "scatter_any": "scatter_any.cu",
+    "hash_keys": "hash_keys.cu",
+    "pack_words": "pack_words.cu",
+    "seg_minmax": "seg_minmax.cu",
+    "order_words": "order_words.cu",
 }
 
 NVCC_FLAGS = [

@@ -11,7 +11,8 @@ decision picks the next capacity.
 Aggregations inside a chain carry a static slot-table capacity; the
 chain returns per-aggregate overflow flags and the caller re-runs it
 with an 8x larger table when one trips (the FlatHash rehash analog).
-DISTINCT aggregates, sketches and variance are not ported yet.
+DISTINCT aggregates dedupe through a second ``group_by``; sketches and
+variance are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.exec import kernels as K
 from trino_tpu_torch.exec import shapes
-from trino_tpu_torch.exec.aggregates import compute_aggregate
+from trino_tpu_torch.exec.aggregates import _zero, compute_aggregate
 from trino_tpu_torch.expr.compiler import ColumnLayout, compile_expr
 from trino_tpu_torch.expr.ir import InputRef
 from trino_tpu_torch.page import StringDictionary, pad_capacity
@@ -53,13 +54,6 @@ class ChainLayout:
             types=dict(self.types), dictionaries=dict(self.dicts),
             device=self.device,
         )
-
-
-def _norm_opt(data, valid):
-    """normalize_key, with the null flag elided (None) for columns that
-    cannot be NULL."""
-    bits, flag = K.normalize_key(data, valid)
-    return bits, (None if valid is None else flag)
 
 
 def _key_width(t: T.DataType, dictionary, value_range=None) -> int:
@@ -206,8 +200,6 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
     expr_layout = layout.expr_layout()
     agg_meta = []
     for sym, call in nd.aggregates.items():
-        if call.distinct:
-            raise NotImplementedError(f"_aggregate_step: {call.name}(DISTINCT)")
         arg_c = [compile_expr(a, expr_layout) for a in call.args] or None
         filter_c = (
             compile_expr(call.filter, expr_layout)
@@ -240,14 +232,14 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
     key_ranges = nd.key_ranges or {}
 
     def step(env, mask, flags):
+        shifted = []
+        width_list = []
         if is_global:
             info = None
             out_mask = torch.zeros(8, dtype=torch.bool, device=mask.device)
             out_mask[0] = True
             env2 = {}
         else:
-            shifted = []
-            width_list = []
             for s in group_keys:
                 data, valid = env[s]
                 if s in layout.pools:
@@ -263,11 +255,8 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
                         key_ranges.get(s),
                     )
                 )
-            norm = [_norm_opt(d, v) for d, v in shifted]
-            info = K.sort_group(
-                tuple(b for b, _ in norm),
-                tuple(fl for _, fl in norm),
-                mask, capacity, widths=tuple(width_list),
+            info = K.group_by(
+                shifted, mask, capacity, widths=tuple(width_list),
             )
             flags = {**flags, pos: info.num_groups > capacity}
             env2 = {}
@@ -285,6 +274,7 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
             out_mask = occupied
         cap_seg = 1 if is_global else capacity
         share = {"#mask": mask}  # per-step cache of sorted cols/counts
+        prepared = []
         for sym, call, arg_c, filter_c in agg_meta:
             arg = None
             contrib = mask
@@ -294,6 +284,28 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
             if filter_c is not None:
                 fd, fv = filter_c.fn(env)
                 contrib = contrib & (fd if fv is None else (fd & fv))
+            if call.distinct:
+                d_arg = arg
+                if (
+                    isinstance(call.args[0].type, T.VarcharType)
+                    and arg[0].dim() == 2
+                ):
+                    # hash-coded varchar: dedupe on the hash lane
+                    d_arg = (arg[0][:, 0], arg[1])
+                    dwidth = 64
+                else:
+                    dwidth = _key_width(
+                        call.args[0].type, arg_c[0].dictionary
+                    )
+                # shifted key pairs match the narrowed widths
+                contrib = _dedupe(
+                    shifted, d_arg, contrib, in_cap,
+                    tuple(width_list) + (dwidth,),
+                )
+            prepared.append((sym, call, arg, contrib))
+        if info is not None:
+            _presort_shared(prepared, info, share)
+        for sym, call, arg, contrib in prepared:
             data, valid = compute_aggregate(
                 call.name, call.type, arg, info, cap_seg, contrib,
                 share=share,
@@ -305,6 +317,77 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
         return env2, out_mask, flags
 
     return step, out_layout
+
+
+def _presort_shared(prepared, info, share):
+    """Gather every column the step's aggregates need into group-sorted
+    order, same-dtype columns stacked and gathered by ``perm`` in one
+    index op, then unstacked into the ``share`` cache that the reducers
+    of ``compute_aggregate`` consult (its keys mirror
+    ``aggregates._Reducer``'s). The stack is [k, n], so each unstacked
+    column is contiguous: torch's eager elementwise ops read a column
+    of an [n, k] stack with stride k."""
+    items: dict[int, torch.Tensor] = {}
+
+    def want(x):
+        if x is not None and id(x) not in items:
+            items[id(x)] = x
+
+    for _sym, _call, arg, contrib in prepared:
+        eff = contrib
+        if isinstance(arg, list):
+            for d, v in arg:
+                if v is not None:
+                    key = ("nulled", id(d), id(v))
+                    hit = share.get(key)
+                    if hit is None:
+                        hit = (d, v, torch.where(v, d, _zero(d)))
+                        share[key] = hit
+                    want(hit[2])
+                else:
+                    want(d)
+        elif arg is not None:
+            d, v = arg
+            want(d)
+            if v is not None:
+                key = ("and", id(contrib), id(v))
+                hit = share.get(key)
+                if hit is None:
+                    hit = (contrib, v, contrib & v)
+                    share[key] = hit
+                eff = hit[2]
+        want(eff)
+
+    by_dtype: dict[tuple, list] = {}
+    for x in items.values():
+        # [n, 2] decimal limbs cannot stack with 1-D columns
+        by_dtype.setdefault((x.dtype, tuple(x.shape[1:])), []).append(x)
+    for xs in by_dtype.values():
+        if len(xs) == 1:
+            x = xs[0]
+            share[("sorted", id(x))] = (x, x[info.perm])
+        else:
+            stacked = torch.stack(xs)[:, info.perm]
+            for i, x in enumerate(xs):
+                share[("sorted", id(x))] = (x, stacked[i])
+
+
+def _dedupe(key_cols, arg, live, page_capacity, widths=None):
+    """DISTINCT: keep one representative row per (group keys, value).
+
+    Sort-based grouping is exact and dense, so a capacity equal to the
+    page capacity never overflows (num_groups <= live rows). The
+    representative of each group is K1's ``rep`` flag: the row at the
+    group's first sorted position."""
+    data, valid = arg
+    live_d = live if valid is None else (live & valid)
+    # the dedupe key value itself: NULL rows are excluded via live_d,
+    # so it needs no null flag
+    info2 = K.group_by(
+        list(key_cols) + [(data, None)], live_d, page_capacity, widths=widths,
+        with_rep=True,
+    )
+    return info2.rep
 
 
 def _sort_step(nd, layout: ChainLayout):

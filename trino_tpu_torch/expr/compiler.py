@@ -15,6 +15,7 @@ tensors on the layout's device, created with the SQL type's dtype.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -262,6 +263,10 @@ class _Compiler:
             return self._coalesce(expr)
         if name == "in":
             return self._in(expr)
+        if name in _STRING_PREDICATES:
+            return self._string_predicate(expr)
+        if name in _STRING_TRANSFORMS:
+            return self._string_transform(expr)
         if name in ("eq", "ne", "lt", "le", "gt", "ge"):
             return self._comparison(expr)
         if name in ("add", "subtract", "multiply", "divide", "modulus"):
@@ -631,6 +636,93 @@ class _Compiler:
 
         return CompiledExpr(ev, out_t)
 
+    def _string_predicate(self, expr: Call) -> CompiledExpr:
+        """LIKE, NOT LIKE and regexp_like: evaluated on the host over the
+        dictionary's values at compile time into a bool table, applied on
+        the device as a gather by code (clamped, as the JAX package's
+        ``mode="clip"`` take). The table is cached with the dictionary,
+        so a scan-cached column pays the host pass once."""
+        a = self.compile(expr.args[0])
+        if a.dictionary is None:
+            raise NotImplementedError(f"{expr.name} requires a dictionary input")
+        pattern = str(expr.args[1].value)  # type: ignore[attr-defined]
+        values = a.dictionary.values
+
+        def build():
+            if expr.name in ("like", "not_like"):
+                matcher = re.compile(_like_to_regex(pattern), re.DOTALL).fullmatch
+            else:
+                # Trino's regexp_like is a search (substring match), not
+                # a full match
+                matcher = re.compile(pattern).search
+            lut = np.fromiter(
+                (matcher(str(v)) is not None for v in values),
+                dtype=np.bool_, count=len(values),
+            )
+            if expr.name == "not_like":
+                lut = ~lut
+            return _clamped_gather(
+                lut if len(lut) else np.zeros(1, np.bool_), self.device
+            )
+
+        gather = _dictionary_derived(
+            a.dictionary, (expr.name, pattern, str(self.device)), build
+        )
+
+        def ev(env):
+            data, valid = a.fn(env)
+            return gather(data), valid
+
+        return CompiledExpr(ev, T.BOOLEAN)
+
+    def _string_transform(self, expr: Call) -> CompiledExpr:
+        """substr, lower, upper, ...: the values of the dictionary are
+        transformed on the host into a new sorted dictionary; the device
+        op is a code-remap gather (plus a per-code NULL table for
+        transforms that can return NULL)."""
+        a = self.compile(expr.args[0])
+        if a.dictionary is None:
+            raise NotImplementedError(f"{expr.name} requires a dictionary input")
+        f = _STRING_TRANSFORMS[expr.name]
+        lits = [l.value for l in expr.args[1:]]  # type: ignore[attr-defined]
+        values = a.dictionary.values
+
+        def build():
+            try:
+                raw = [f(str(v), *lits) for v in values]
+            except (re.error, IndexError) as e:
+                raise ValueError(f"{expr.name}: {e}") from e
+            null_lut = np.fromiter(
+                (v is None for v in raw), dtype=np.bool_, count=len(raw)
+            )
+            transformed = np.asarray(
+                ["" if v is None else v for v in raw], dtype=object
+            )
+            if len(transformed):
+                new_dict, codes = StringDictionary.from_strings(transformed)
+            else:
+                new_dict = StringDictionary(np.asarray([], dtype=object))
+                codes = np.zeros(1, dtype=np.int32)
+            null_at = (
+                _clamped_gather(null_lut, self.device) if null_lut.any()
+                else None
+            )
+            return new_dict, _clamped_gather(codes, self.device), null_at
+
+        new_dict, remap, null_at = _dictionary_derived(
+            a.dictionary, (expr.name, repr(lits), str(self.device)), build
+        )
+
+        def ev(env):
+            data, valid = a.fn(env)
+            out = remap(data)
+            if null_at is not None:
+                notnull = ~null_at(data)
+                valid = notnull if valid is None else (valid & notnull)
+            return out, valid
+
+        return CompiledExpr(ev, expr.type, new_dict)
+
     def _simple(self, expr: Call) -> CompiledExpr:
         parts = [self.compile(a) for a in expr.args]
         f = _SIMPLE_FNS[expr.name]
@@ -730,9 +822,47 @@ def _redict_fn(part: CompiledExpr, merged: StringDictionary | None, device):
 def _remap_gather(remap: np.ndarray, device):
     if len(remap) == 0:
         return lambda data: data
-    table = torch.from_numpy(remap).to(device)
-    top = len(remap) - 1
-    return lambda data: table[data.long().clamp(0, top)]
+    return _clamped_gather(remap, device)
+
+
+def _dictionary_derived(d: StringDictionary, key, build):
+    """``build()``'s result for (dictionary, key), computed once and kept
+    with the dictionary (a scan-cached column's dictionary lives across
+    queries, so warm runs skip the host pass over its values)."""
+    hit = d.derived.get(key)
+    if hit is None:
+        hit = build()
+        d.derived[key] = hit
+    return hit
+
+
+def _clamped_gather(table: np.ndarray, device):
+    """A device lookup ``table[clamp(code)]`` (the JAX package's
+    ``jnp.take(..., mode="clip")``) of a non-empty host table."""
+    dev_table = torch.from_numpy(np.ascontiguousarray(table)).to(device)
+    top = len(table) - 1
+    return lambda data: dev_table[data.long().clamp(0, top)]
+
+
+def _like_to_regex(pattern: str, escape: str | None = None) -> str:
+    """A SQL LIKE pattern as a Python regex (``%`` any run, ``_`` one
+    character, ``escape`` quoting the next character)."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if escape and ch == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+        i += 1
+    return "".join(out)
 
 
 _CMP_OPS = {
@@ -746,6 +876,75 @@ _CMP_OPS = {
 
 #: operator under argument swap: a OP b == b MIRROR(OP) a
 _MIRRORED_CMP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+
+_STRING_PREDICATES = {"like", "not_like", "regexp_like"}
+
+_STRING_TRANSFORMS: dict[str, Callable] = {
+    "substr": lambda s, start, length=None: (
+        s[int(start) - 1 : int(start) - 1 + int(length)]
+        if length is not None
+        else s[int(start) - 1 :]
+    ),
+    "lower": lambda s: s.lower(),
+    "upper": lambda s: s.upper(),
+    "trim": lambda s: s.strip(),
+    "ltrim": lambda s: s.lstrip(),
+    "rtrim": lambda s: s.rstrip(),
+    "reverse": lambda s: s[::-1],
+    "replace": lambda s, find, repl="": s.replace(find, repl),
+    # || with a literal operand (ConcatFunction over dictionary values)
+    "concat_suffix": lambda s, suffix: s + str(suffix),
+    "concat_prefix": lambda s, prefix: str(prefix) + s,
+    # Trino regex semantics (JoniRegexpFunctions): extract returns the
+    # group (NULL-as-empty here: dictionary transforms cannot produce
+    # NULL) or '' when unmatched; replace substitutes every match
+    "regexp_extract": lambda s, pattern, group=0: (
+        (lambda m: (m.group(int(group)) or "") if m else None)(
+            re.search(str(pattern), s)
+        )
+    ),
+    "regexp_replace": lambda s, pattern, repl="": re.sub(
+        str(pattern),
+        _java_replacement(
+            str(repl), re.compile(str(pattern)).groups
+        ),
+        s,
+    ),
+}
+
+
+def _java_replacement(repl: str, n_groups: int) -> str:
+    r"""Java appendReplacement semantics (what Trino's regexp_replace
+    uses) -> python re.sub replacement: $N group references backtrack
+    to the largest VALID group number ($10 with one group = group 1 +
+    literal '0'); backslash escapes the next character literally; the
+    output escapes python's own backslash handling."""
+    def lit(c: str) -> str:
+        return "\\\\" if c == "\\" else c
+
+    out = []
+    i = 0
+    while i < len(repl):
+        c = repl[i]
+        if c == "\\" and i + 1 < len(repl):
+            out.append(lit(repl[i + 1]))
+            i += 2
+            continue
+        if c == "$":
+            j = i + 1
+            while j < len(repl) and repl[j].isdigit():
+                j += 1
+            # backtrack to the largest group number the pattern has
+            while j > i + 1 and int(repl[i + 1:j]) > max(n_groups, 0) \
+                    and j - (i + 1) > 1:
+                j -= 1
+            if j > i + 1:
+                out.append(f"\\g<{repl[i + 1:j]}>")
+                i = j
+                continue
+        out.append(lit(c))
+        i += 1
+    return "".join(out)
 
 
 # ---- civil-date helpers (Howard Hinnant's algorithms) ---------------------

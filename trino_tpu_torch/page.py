@@ -66,11 +66,14 @@ class StringDictionary:
     VARCHAR run entirely on device codes.
     """
 
-    __slots__ = ("values",)
+    __slots__ = ("values", "derived")
 
     def __init__(self, values: np.ndarray):
         # values must be sorted & unique (callers use from_strings)
         self.values = values
+        #: tables computed once from the values (the expression
+        #: compiler's LIKE lookups and transform remaps), by key
+        self.derived: dict = {}
 
     @staticmethod
     def from_strings(strings: Sequence[str]) -> tuple["StringDictionary", np.ndarray]:

@@ -1,5 +1,6 @@
-"""Exact numpy implementations of TPC-H Q1, Q3, Q4, Q17, Q18 and Q21,
-and of one full outer join (``FJ_SQL``).
+"""Exact numpy implementations of TPC-H Q1, Q2, Q3, Q4, Q9, Q11, Q13,
+Q14, Q16, Q17, Q18, Q20, Q21 and Q22, and of one full outer join
+(``FJ_SQL``).
 
 An independent check of the engine's answers: the same generated data
 (``connectors.tpch.generator.TpchData``: dates as epoch days, decimals
@@ -9,8 +10,11 @@ the SQL scale, ints, ISO dates). Decimal sums are exact: each int64
 column is summed as two 32-bit limbs and recombined in Python integers;
 averages round half away from zero, as the engine's decimal avg does.
 Q17's one DOUBLE output is the exact decimal sum converted to a double
-and divided by 7.0; the engine casts the two-limb sum the same way, so
-the two agree to a few ulps (compare to relative 1e-12).
+and divided by 7.0, Q14's the ratio of two exact sums converted to
+doubles; the engine casts the two-limb sums the same way, so the two
+agree to a few ulps (``rows_match`` compares DOUBLEs to relative 1e-12).
+String predicates are Python string methods (``in``, ``startswith``,
+``find``), not the engine's LIKE-to-regex translation.
 """
 
 from __future__ import annotations
@@ -21,7 +25,10 @@ import numpy as np
 
 from trino_tpu_torch import types as T
 
-__all__ = ["q01", "q03", "q04", "q17", "q18", "q21", "fj", "FJ_SQL", "q18_sql"]
+__all__ = [
+    "q01", "q02", "q03", "q04", "q09", "q11", "q13", "q14", "q16", "q17",
+    "q18", "q20", "q21", "q22", "fj", "FJ_SQL", "q18_sql", "rows_match",
+]
 
 #: a full outer join with unmatched rows on both sides (no TPC-H query
 #: has one): 1992 orders against customers with a large balance
@@ -283,3 +290,295 @@ def fj(data) -> list[tuple]:
         len(o_cust) + lonely_customers, len(o_cust),
         matched_orders + lonely_customers,
     )]
+
+
+def rows_match(name: str, got, want) -> bool:
+    """The engine's rows against a reference's: equal, with DOUBLEs to
+    relative 1e-12 (Q14, Q17) and, for Q11, whose ORDER BY value leaves
+    ties in no defined order, the value column equal in order and the
+    rows equal as a set."""
+    if len(got) != len(want):
+        return False
+    if name == "q11":
+        return (
+            [r[1] for r in got] == [r[1] for r in want]
+            and sorted(got) == sorted(want)
+        )
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                if not isinstance(a, float) or abs(a - b) > 1e-12 * abs(b):
+                    return False
+            elif type(a) is not type(b) or a != b:
+                return False
+    return True
+
+
+def _contains_in_order(values, first: str, second: str) -> np.ndarray:
+    """``LIKE '%first%second%'`` of each string, by ``str.find``."""
+    out = np.zeros(len(values), dtype=np.bool_)
+    for i, v in enumerate(values):
+        j = v.find(first)
+        out[i] = j >= 0 and v.find(second, j + len(first)) >= 0
+    return out
+
+
+def _years(days: np.ndarray) -> np.ndarray:
+    """Calendar years of epoch days."""
+    return (
+        np.asarray(days, dtype="datetime64[D]").astype("datetime64[Y]")
+        .astype(np.int64) + 1970
+    )
+
+
+def _region_suppliers(data, region: str) -> np.ndarray:
+    """Row mask over supplier: suppliers of the named region."""
+    r_key = data.column("region", "r_regionkey")[_str(data, "region", "r_name") == region]
+    nations = data.column("nation", "n_nationkey")[
+        np.isin(data.column("nation", "n_regionkey"), r_key)
+    ]
+    return np.isin(data.column("supplier", "s_nationkey"), nations)
+
+
+def q02(data) -> list[tuple]:
+    """TPC-H Q2 rows: per size-15 BRASS part, the European suppliers at
+    the part's lowest European supply cost; largest s_acctbal first,
+    then n_name, s_name, p_partkey; at most 100."""
+    s_key = data.column("supplier", "s_suppkey")
+    eu_supp = s_key[_region_suppliers(data, "EUROPE")]
+    ps_part = data.column("partsupp", "ps_partkey")
+    ps_supp = data.column("partsupp", "ps_suppkey")
+    ps_cost = data.column("partsupp", "ps_supplycost")  # scale 2
+    in_eu = np.isin(ps_supp, eu_supp)
+    order = np.argsort(ps_part[in_eu], kind="stable")
+    ks = ps_part[in_eu][order]
+    if len(ks) == 0:
+        return []
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    parts = ks[starts]
+    mins = np.minimum.reduceat(ps_cost[in_eu][order], starts)
+    p_key = data.column("part", "p_partkey")
+    p_type = data.column("part", "p_type")
+    brass = np.fromiter((t.endswith("BRASS") for t in p_type), np.bool_, len(p_type))
+    cand = p_key[(data.column("part", "p_size") == 15) & brass]
+    sel = np.flatnonzero(in_eu & np.isin(ps_part, cand))
+    at = np.searchsorted(parts, ps_part[sel])
+    sel = sel[ps_cost[sel] == mins[at]]
+    s_at = _lookup(s_key, ps_supp[sel])
+    p_at = _lookup(p_key, ps_part[sel])
+    n_at = _lookup(
+        data.column("nation", "n_nationkey"),
+        data.column("supplier", "s_nationkey")[s_at],
+    )
+    acct = data.column("supplier", "s_acctbal")[s_at]
+    cols = {
+        "s_name": _str(data, "supplier", "s_name")[s_at],
+        "n_name": _str(data, "nation", "n_name")[n_at],
+        "s_address": _str(data, "supplier", "s_address")[s_at],
+        "s_phone": _str(data, "supplier", "s_phone")[s_at],
+        "s_comment": _str(data, "supplier", "s_comment")[s_at],
+        "p_mfgr": _str(data, "part", "p_mfgr")[p_at],
+    }
+    pk = ps_part[sel]
+    top = sorted(
+        range(len(sel)),
+        key=lambda i: (-int(acct[i]), cols["n_name"][i], cols["s_name"][i], int(pk[i])),
+    )[:100]
+    return [
+        (_dec(int(acct[i]), 2), str(cols["s_name"][i]), str(cols["n_name"][i]),
+         int(pk[i]), str(cols["p_mfgr"][i]), str(cols["s_address"][i]),
+         str(cols["s_phone"][i]), str(cols["s_comment"][i]))
+        for i in top
+    ]
+
+
+def q09(data) -> list[tuple]:
+    """TPC-H Q9 rows: profit of 'green' parts per supplier nation and
+    order year; nation ascending, year descending."""
+    p_key = data.column("part", "p_partkey")
+    p_name = data.column("part", "p_name")
+    green = p_key[np.fromiter(("green" in v for v in p_name), np.bool_, len(p_name))]
+    l_part = data.column("lineitem", "l_partkey")
+    sel = np.isin(l_part, green)
+    part = l_part[sel]
+    supp = data.column("lineitem", "l_suppkey")[sel]
+    # ps_supplycost of each line's (part, supplier)
+    width = int(data.column("supplier", "s_suppkey").max()) + 1
+    ps_pair = data.column("partsupp", "ps_partkey") * width + data.column("partsupp", "ps_suppkey")
+    cost = data.column("partsupp", "ps_supplycost")[_lookup(ps_pair, part * width + supp)]
+    amount = (
+        data.column("lineitem", "l_extendedprice")[sel]
+        * (100 - data.column("lineitem", "l_discount")[sel])
+        - cost * data.column("lineitem", "l_quantity")[sel]
+    )  # scale 4
+    nation = data.column("supplier", "s_nationkey")[
+        _lookup(data.column("supplier", "s_suppkey"), supp)
+    ]
+    year = _years(data.column("orders", "o_orderdate")[
+        _lookup(data.column("orders", "o_orderkey"),
+                data.column("lineitem", "l_orderkey")[sel])
+    ])
+    keys, inv = np.unique(nation * 10_000 + year, return_inverse=True)
+    sums = _group_sums(inv, amount, len(keys))
+    n_name = _str(data, "nation", "n_name")[
+        _lookup(data.column("nation", "n_nationkey"), keys // 10_000)
+    ]
+    rows = [
+        (str(n_name[i]), int(keys[i] % 10_000), _dec(int(sums[i]), 4))
+        for i in range(len(keys))
+    ]
+    return sorted(rows, key=lambda r: (r[0], -r[1]))
+
+
+def q11(data) -> list[tuple]:
+    """TPC-H Q11 rows: German stock value per part above 0.0001 of the
+    German total, largest first (ties by p_partkey)."""
+    s_key = data.column("supplier", "s_suppkey")
+    germany = data.column("nation", "n_nationkey")[
+        _str(data, "nation", "n_name") == "GERMANY"
+    ]
+    supp = s_key[np.isin(data.column("supplier", "s_nationkey"), germany)]
+    sel = np.isin(data.column("partsupp", "ps_suppkey"), supp)
+    value = (
+        data.column("partsupp", "ps_supplycost")[sel]
+        * data.column("partsupp", "ps_availqty")[sel]
+    )  # scale 2
+    total = _exact_sum(value)
+    keys, inv = np.unique(data.column("partsupp", "ps_partkey")[sel], return_inverse=True)
+    sums = _group_sums(inv, value, len(keys))
+    # value > total * 0.0001000000, exactly: value * 10^4 > total
+    rows = [
+        (int(k), _dec(int(v), 2)) for k, v in zip(keys, sums)
+        if int(v) * 10_000 > total
+    ]
+    return sorted(rows, key=lambda r: (-r[1], r[0]))
+
+
+def q13(data) -> list[tuple]:
+    """TPC-H Q13 rows: how many customers have each count of orders
+    whose comment is not like '%special%requests%'; most customers
+    first, then the larger count."""
+    keep = ~_contains_in_order(data.column("orders", "o_comment"), "special", "requests")
+    c_key = data.column("customer", "c_custkey")
+    at = _lookup(c_key, data.column("orders", "o_custkey")[keep])
+    per_cust = np.bincount(at, minlength=len(c_key))
+    counts, custdist = np.unique(per_cust, return_counts=True)
+    order = np.lexsort((-counts, -custdist))
+    return [(int(counts[i]), int(custdist[i])) for i in order]
+
+
+def q14(data) -> list[tuple]:
+    """TPC-H Q14's one row: the promotion share of September 1995's
+    revenue, 100.0 * promo / total over the exact sums as doubles."""
+    ship = data.column("lineitem", "l_shipdate")
+    sel = (ship >= T.parse_date("1995-09-01")) & (ship < T.parse_date("1995-10-01"))
+    rev = (
+        data.column("lineitem", "l_extendedprice")[sel]
+        * (100 - data.column("lineitem", "l_discount")[sel])
+    )  # scale 4
+    p_type = data.column("part", "p_type")[
+        _lookup(data.column("part", "p_partkey"), data.column("lineitem", "l_partkey")[sel])
+    ]
+    promo = np.fromiter((t.startswith("PROMO") for t in p_type), np.bool_, len(p_type))
+    total = _exact_sum(rev)
+    if not sel.any():
+        return [(None,)]
+    return [(100.0 * (_exact_sum(rev[promo]) / 1e4) / (total / 1e4),)]
+
+
+def q16(data) -> list[tuple]:
+    """TPC-H Q16 rows: distinct suppliers without complaints per
+    (brand, type, size) of the selected parts; most suppliers first,
+    then brand, type, size."""
+    s_comment = data.column("supplier", "s_comment")
+    bad = data.column("supplier", "s_suppkey")[
+        _contains_in_order(s_comment, "Customer", "Complaints")
+    ]
+    brand = data.column("part", "p_brand")
+    p_type = data.column("part", "p_type")
+    size = data.column("part", "p_size")
+    ok = (
+        (np.asarray(brand) != "Brand#45")
+        & ~np.fromiter((t.startswith("MEDIUM POLISHED") for t in p_type), np.bool_, len(p_type))
+        & np.isin(size, [49, 14, 23, 45, 19, 3, 36, 9])
+    )
+    p_key = data.column("part", "p_partkey")
+    ps_part = data.column("partsupp", "ps_partkey")
+    ps_supp = data.column("partsupp", "ps_suppkey")
+    sel = np.isin(ps_part, p_key[ok]) & ~np.isin(ps_supp, bad)
+    p_at = _lookup(p_key, ps_part[sel])
+    groups: dict[tuple, set] = {}
+    for b, t, z, s_ in zip(brand[p_at], p_type[p_at], size[p_at], ps_supp[sel]):
+        groups.setdefault((str(b), str(t), int(z)), set()).add(int(s_))
+    rows = [(b, t, z, len(v)) for (b, t, z), v in groups.items()]
+    return sorted(rows, key=lambda r: (-r[3], r[0], r[1], r[2]))
+
+
+def q20(data) -> list[tuple]:
+    """TPC-H Q20 rows: Canadian suppliers with more stock of a 'forest'
+    part than half of what they shipped of it in 1994, by s_name."""
+    p_name = data.column("part", "p_name")
+    forest = data.column("part", "p_partkey")[
+        np.fromiter((v.startswith("forest") for v in p_name), np.bool_, len(p_name))
+    ]
+    ship = data.column("lineitem", "l_shipdate")
+    l_part = data.column("lineitem", "l_partkey")
+    sel = (
+        (ship >= T.parse_date("1994-01-01")) & (ship < T.parse_date("1995-01-01"))
+        & np.isin(l_part, forest)
+    )
+    width = int(data.column("supplier", "s_suppkey").max()) + 1
+    pairs, inv = np.unique(
+        l_part[sel] * width + data.column("lineitem", "l_suppkey")[sel],
+        return_inverse=True,
+    )
+    shipped = _group_sums(inv, data.column("lineitem", "l_quantity")[sel], len(pairs))
+    ps_part = data.column("partsupp", "ps_partkey")
+    ps_supp = data.column("partsupp", "ps_suppkey")
+    cand = np.flatnonzero(np.isin(ps_part, forest))
+    key = ps_part[cand] * width + ps_supp[cand]
+    at = np.clip(np.searchsorted(pairs, key), 0, max(len(pairs) - 1, 0))
+    has = (at < len(pairs)) & (pairs[at] == key) if len(pairs) else np.zeros(len(key), bool)
+    avail = data.column("partsupp", "ps_availqty")[cand]
+    # ps_availqty > 0.5 * sum(l_quantity) (scale 2): 200 * avail > sum
+    keep = has & (200 * avail > np.where(has, shipped[at] if len(pairs) else 0, 0))
+    supp = np.unique(ps_supp[cand][keep])
+    canada = data.column("nation", "n_nationkey")[_str(data, "nation", "n_name") == "CANADA"]
+    s_sel = (
+        np.isin(data.column("supplier", "s_nationkey"), canada)
+        & np.isin(data.column("supplier", "s_suppkey"), supp)
+    )
+    rows = list(zip(
+        _str(data, "supplier", "s_name")[s_sel].tolist(),
+        _str(data, "supplier", "s_address")[s_sel].tolist(),
+    ))
+    return sorted(rows)
+
+
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def q22(data) -> list[tuple]:
+    """TPC-H Q22 rows: per country code, customers without orders whose
+    balance is above the code set's average positive balance (a decimal
+    avg rounded half away from zero); by code."""
+    phone = data.column("customer", "c_phone")
+    code = np.asarray([p[:2] for p in phone], dtype=object)
+    inset = np.isin(code.astype(str), Q22_CODES)
+    acct = data.column("customer", "c_acctbal")  # scale 2
+    pos = inset & (acct > 0)
+    if not pos.any():
+        return []
+    avg = _div_half_away(_exact_sum(acct[pos]), int(np.count_nonzero(pos)))
+    sel = (
+        inset & (acct > avg)
+        & ~np.isin(data.column("customer", "c_custkey"), data.column("orders", "o_custkey"))
+    )
+    codes, inv = np.unique(code[sel].astype(str), return_inverse=True)
+    sums = _group_sums(inv, acct[sel], len(codes))
+    counts = np.bincount(inv, minlength=len(codes))
+    return [
+        (str(c), int(n), _dec(int(s_), 2)) for c, n, s_ in zip(codes, counts, sums)
+    ]
