@@ -28,10 +28,14 @@ Run from the repository root, with no arguments:
    scan stops).
 4. Main path: ``QueryRunner.tpch("sf1")`` and ``QueryRunner.tpch("sf10")``
    on cuda run TPC-H Q1, Q3, Q18, Q4, Q17, Q21, a full outer join and
-   Q2, Q9, Q11, Q13, Q14, Q16, Q20, Q22 (tables resident on the card).
-   Rows must equal the exact numpy reference
+   Q2, Q9, Q11, Q13, Q14, Q16, Q20, Q22 (tables resident on the card;
+   Q11's FRACTION is 0.0001 / SF, as TPC-H sets it). Rows must equal the
+   exact numpy reference
    (``trino_tpu_torch.testing.numpy_reference.rows_match``: Q14's and
    Q17's one DOUBLE to relative 1e-12), cold and in 3 warm runs. Every
+   query runs under ``query_max_memory_per_node``'s default, except Q9 at
+   SF10, which must first fail under it with ExceededMemoryLimitError
+   (the port has no spill tier yet) and then runs with the cap raised. Every
    kernel's launch count is set to 0 before the main path and must be
    non-zero after it; the launches of each query's runs are printed.
 5. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
@@ -105,7 +109,7 @@ def same(torch, a, b) -> bool:
 
 def group_case(torch, np, K, shapes, dev, n_groups: int, rows: int = LINEITEM_ROWS):
     """Sorted Q1/Q3-like grouping inputs: packed key words with liveness
-    folded in (the sort_group hot path), ~3% dead rows."""
+    folded in (the group_by hot path), ~3% dead rows."""
     rng = np.random.default_rng(SEED + n_groups)
     keys = torch.from_numpy(
         rng.integers(0, n_groups, size=rows, dtype=np.int64)
@@ -595,31 +599,55 @@ def k10_phase(torch, K, keys, live) -> dict:
 # ---- main path ---------------------------------------------------------------
 
 
-def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
-    queries = [
-        ("q01", QUERIES["q01"], R.q01),
-        ("q03", QUERIES["q03"], R.q03),
-        ("q18", QUERIES["q18"], R.q18),
-        ("q04", QUERIES["q04"], R.q04),
-        ("q17", QUERIES["q17"], R.q17),
-        ("q21", QUERIES["q21"], R.q21),
-        ("fj", R.FJ_SQL, R.fj),
-    ] + [(q, QUERIES[q], getattr(R, q)) for q in NEW_QUERIES]
+#: Q11's FRACTION per scale (TPC-H 2.4.11.3: 0.0001 / SF), so that SF10's
+#: answer has rows to compare
+Q11_FRACTION = {"sf1": "0.0001000000", "sf10": "0.0000100000"}
+#: the queries that need more than query_max_memory_per_node's 2GB
+#: default: the port has no spill tier yet (ROADMAP Queue 1, step 12),
+#: so a join over the per-node cap cannot be revoked to the host, and
+#: these run with the cap at what the 80 GB card holds (Q9's SF10 join
+#: reserves 7.3 GB); every other query keeps the default
+OVER_DEFAULT_CAP = {("q09", "sf10"): "64GB"}
+
+
+def main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError) -> dict:
     results = {}
     K.reset_launches()
     for scale in ("sf1", "sf10"):
+        fraction = Q11_FRACTION[scale]
+        queries = [
+            ("q01", QUERIES["q01"], R.q01),
+            ("q03", QUERIES["q03"], R.q03),
+            ("q18", QUERIES["q18"], R.q18),
+            ("q04", QUERIES["q04"], R.q04),
+            ("q17", QUERIES["q17"], R.q17),
+            ("q21", QUERIES["q21"], R.q21),
+            ("fj", R.FJ_SQL, R.fj),
+        ] + [
+            ("q11", R.q11_sql(fraction), lambda d, f=fraction: R.q11(d, f))
+            if q == "q11" else (q, QUERIES[q], getattr(R, q))
+            for q in NEW_QUERIES
+        ]
         t0 = time.perf_counter()
         runner = QueryRunner.tpch(scale)
         if runner.device.type != "cuda":
             fail(f"runner for {scale} is on {runner.device}")
-        # the port has no spill tier yet (ROADMAP Queue 1, step 12), so a
-        # join over the per-node cap cannot be revoked to the host: the
-        # cap is set to what the 80 GB card holds (Q9's SF10 join
-        # reserves 7.3 GB against the 2GB default)
-        runner.session.properties["query_max_memory_per_node"] = "64GB"
         data = runner.metadata.connector("tpch").data(scale)
         torch.cuda.reset_peak_memory_stats()
         for name, sql, ref in queries:
+            cap = OVER_DEFAULT_CAP.get((name, scale))
+            if cap is not None:
+                # under the default cap the join must refuse its working
+                # set, until the spill tier is ported
+                try:
+                    runner.execute(sql)
+                except ExceededMemoryLimitError as e:
+                    print(f"main path {name} {scale}: under the default "
+                          f"cap: {str(e)[:160]}", flush=True)
+                else:
+                    fail(f"{name} at {scale} ran under the default "
+                         "query_max_memory_per_node; drop its raised cap")
+                runner.session.properties["query_max_memory_per_node"] = cap
             before = {k: fn.launches for k, fn in K.KERNELS.items()}
             tc = time.perf_counter()
             rows = runner.execute(sql).rows
@@ -640,8 +668,10 @@ def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
             per_query = {
                 k: fn.launches - before[k] for k, fn in K.KERNELS.items()
             }
+            if cap is not None:
+                runner.session.properties.pop("query_max_memory_per_node")
             results[f"{name}_{scale}"] = {
-                "rows": len(rows), "cold_ms": cold_ms,
+                "rows": len(rows), "cold_ms": cold_ms, "cap": cap,
                 "warm_ms": warm, "warm_median_ms": statistics.median(warm),
                 "launches_4_runs": per_query,
             }
@@ -681,6 +711,7 @@ def main() -> int:
     from trino_tpu_torch.engine import QueryRunner
     from trino_tpu_torch.exec import kernels as K
     from trino_tpu_torch.exec import native, shapes
+    from trino_tpu_torch.memory import ExceededMemoryLimitError
     from trino_tpu_torch.testing import numpy_reference as R
 
     smi = nvidia_line()
@@ -803,7 +834,7 @@ def main() -> int:
                   f"{c['max_abs_err']}", flush=True)
 
     # ---- main path
-    path = main_path(torch, K, QueryRunner, QUERIES, R)
+    path = main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError)
     launches = {k: fn.launches for k, fn in K.KERNELS.items()}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

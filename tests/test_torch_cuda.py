@@ -55,11 +55,11 @@ def test_group_ids_kernel(cuda, n, n_keys, capacity, widths):
         keys = keys | (1 << 62)  # exercise the top key bit
     cpu_bits = (torch.from_numpy(keys),)
     cpu_live = torch.from_numpy(live)
-    want = K.sort_group(cpu_bits, (None,), cpu_live, capacity, widths=widths,
-                        with_rep=True)
+    want = K.group_by([(cpu_bits[0], None)], cpu_live, capacity, widths=widths,
+                      with_rep=True)
     K.group_ids.launches = 0
-    got = K.sort_group(
-        tuple(b.to(cuda) for b in cpu_bits), (None,), cpu_live.to(cuda),
+    got = K.group_by(
+        [(cpu_bits[0].to(cuda), None)], cpu_live.to(cuda),
         capacity, widths=widths, with_rep=True,
     )
     torch.cuda.synchronize()
@@ -79,8 +79,8 @@ def test_seg_sum_kernel(cuda, n, n_keys, dtype):
     keys, live = _group_inputs(n, n_keys, 0.2, seed=7 + n_keys)
     rng = np.random.default_rng(n)
     cap = 1 << max(int(n_keys).bit_length(), 3)
-    info = K.sort_group(
-        (torch.from_numpy(keys),), (None,), torch.from_numpy(live), cap,
+    info = K.group_by(
+        [(torch.from_numpy(keys), None)], torch.from_numpy(live), cap,
         widths=(64,),
     )
     if dtype == torch.int64:
@@ -325,8 +325,8 @@ def test_seg_minmax_kernel(cuda, n, n_keys, dtype):
     keys, live = _group_inputs(n, n_keys, 0.2, seed=11 + n_keys)
     rng = np.random.default_rng(n + 1)
     cap = 1 << max(int(n_keys).bit_length(), 3)
-    info = K.sort_group(
-        (torch.from_numpy(keys),), (None,), torch.from_numpy(live), cap,
+    info = K.group_by(
+        [(torch.from_numpy(keys), None)], torch.from_numpy(live), cap,
         widths=(64,),
     )
     if dtype.is_floating_point:

@@ -102,9 +102,10 @@ CASES = [
 @pytest.mark.parametrize("case", CASES)
 def test_sort_group_matches_jax(case, n):
     cols, live, capacity, widths = _key_case(case, n, seed=n + len(case))
-    jn, tn = _norm_both(cols)
-    got = TK.sort_group(
-        tuple(b for b, _ in tn), tuple(f for _, f in tn),
+    jn, _tn = _norm_both(cols)
+    got = TK.group_by(
+        [(torch.from_numpy(d), None if v is None else torch.from_numpy(v))
+         for d, v in cols],
         torch.from_numpy(live), capacity, widths=widths, with_rep=True,
     )
     if n == 0:
@@ -134,9 +135,8 @@ def test_seg_sum_ranges_matches_jax(dtype, n):
     cols, live, capacity, widths = _key_case("overflow" if n > 7 else "dups", n, 3)
     capacity = 4 * max(n, 1) if n > 7 else capacity
     jn, tn = _norm_both(cols)
-    tinfo = TK.sort_group(
-        tuple(b for b, _ in tn), (None,) * len(tn), torch.from_numpy(live),
-        capacity,
+    tinfo = TK.group_by(
+        [(b, None) for b, _ in tn], torch.from_numpy(live), capacity,
     )
     if n == 0:
         z = torch.zeros(0, dtype=getattr(torch, dtype))
@@ -518,8 +518,8 @@ def test_seg_minmax_matches_jax(dtype, n):
     cols, live, capacity, _w = _key_case("dups" if n < 4096 else "overflow", n, 5)
     capacity = 4 * max(n, 1) if n > 7 else capacity
     jn, tn = _norm_both(cols)
-    tinfo = TK.sort_group(
-        tuple(b for b, _ in tn), (None,) * len(tn), torch.from_numpy(live), capacity,
+    tinfo = TK.group_by(
+        [(b, None) for b, _ in tn], torch.from_numpy(live), capacity,
     )
     vals, fills = _minmax_case(dtype, n, seed=n + 2)
     contrib = np.random.default_rng(n).random(n) >= 0.3

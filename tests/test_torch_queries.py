@@ -176,6 +176,12 @@ REFERENCES = {
     "q04": (QUERIES["q04"], numpy_reference.q04),
     "q09": (QUERIES["q09"], numpy_reference.q09),
     "q11": (QUERIES["q11"], numpy_reference.q11),
+    # a FRACTION that keeps a quarter of tiny's parts (TPC-H scales it
+    # as 0.0001 / SF; the card runs SF10's)
+    "q11_0.005": (
+        numpy_reference.q11_sql("0.0050000000"),
+        lambda d: numpy_reference.q11(d, "0.0050000000"),
+    ),
     "q13": (QUERIES["q13"], numpy_reference.q13),
     "q14": (QUERIES["q14"], numpy_reference.q14),
     "q16": (QUERIES["q16"], numpy_reference.q16),
@@ -199,11 +205,29 @@ def test_numpy_reference_matches_sqlite(name, torch_runner, oracle):
     got = torch_runner.execute(sql).rows
     # exact; Q14's and Q17's one DOUBLE (exact decimal sums converted to
     # doubles on both sides) to relative 1e-12; Q11's ties in any order
-    assert numpy_reference.rows_match(name, got, rows)
+    # (a variant is compared as its base query)
+    assert numpy_reference.rows_match(name.split("_")[0], got, rows)
     if name == "fj" and not sqlite_supports("full_join"):
         pytest.skip("the oracle's sqlite has no FULL OUTER JOIN")
     expected = oracle.execute(to_sqlite(sql)).fetchall()
     assert_rows_match(rows, expected, ordered=True, abs_tol=0.006)
+
+
+@pytest.mark.parametrize("got,want,match", [
+    (1.0, 1.0, True),
+    (1.0 + 1e-15, 1.0, True),
+    (1.0 + 1e-9, 1.0, False),
+    (float("nan"), 1.0, False),
+    (1.0, float("nan"), False),
+    (float("nan"), float("nan"), False),
+    (float("inf"), float("inf"), True),
+    (None, 1.0, False),
+    (None, None, True),
+])
+def test_rows_match_doubles(got, want, match):
+    """``rows_match`` holds a DOUBLE to relative 1e-12 and matches a NaN
+    on neither side."""
+    assert numpy_reference.rows_match("q17", [(got,)], [(want,)]) is match
 
 
 #: tiny's high-NDV strings (names, comments) hash-code above this
@@ -290,3 +314,32 @@ def test_chunked_cross_join_raises():
     assert runner.execute(sql.replace("nation", "region")).rows == [(25,)]
     with pytest.raises(NotImplementedError, match="_cross_join"):
         runner.execute(sql)
+
+
+def test_like_tables_per_dictionary_are_bounded(oracle):
+    """LIKE's host tables stay with the scan's dictionary for the
+    ``DERIVED_PER_DICTIONARY`` most recent patterns: ad-hoc patterns
+    evict the oldest, a repeated one is a hit, and an evicted one is
+    built again with the same answer."""
+    from trino_tpu_torch.expr import compiler
+
+    patterns = ["%BRASS", "PROMO%", "%TIN", "MEDIUM%", "%STEEL", "LARGE%"]
+    sql = "select count(*) from part where p_type like '{}'"
+    runner = TorchRunner.tpch("tiny", device="cpu")
+    for pat in patterns:
+        q = sql.format(pat)
+        assert runner.execute(q).rows == oracle.execute(q).fetchall()
+    (part,) = [
+        cols for key, cols in runner.executor._scan_cache.items()
+        if "part" in key
+    ]
+    derived = part["p_type"].dictionary.derived
+    assert [k[1] for k in derived] == patterns[-compiler.DERIVED_PER_DICTIONARY:]
+    last = derived[next(reversed(derived))]
+    q = sql.format(patterns[-1])
+    assert runner.execute(q).rows == oracle.execute(q).fetchall()
+    assert derived[next(reversed(derived))] is last
+    q = sql.format(patterns[0])
+    assert runner.execute(q).rows == oracle.execute(q).fetchall()
+    assert len(derived) == compiler.DERIVED_PER_DICTIONARY
+    assert next(reversed(derived))[1] == patterns[0]

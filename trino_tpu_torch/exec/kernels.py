@@ -62,7 +62,6 @@ __all__ = [
     "limb_parts",
     "GroupInfo",
     "group_by",
-    "sort_group",
     "pack_keys",
     "pack_keys_plain",
     "group_ids",
@@ -292,25 +291,6 @@ class GroupInfo(NamedTuple):
     rep: torch.Tensor
 
 
-def sort_group(
-    norm_bits,
-    null_flags,
-    live: torch.Tensor,
-    capacity: int,
-    widths=None,
-    pre_perm: torch.Tensor | None = None,
-    with_rep: bool = False,
-) -> GroupInfo:
-    """Exact multi-key grouping over normalized key bits and null flags
-    (the signature of ``kernels.py:sort_group``): ``group_by`` over the
-    columns ``(bits, ~flag)``, whose normalization leaves the bits as
-    they are."""
-    cols = [
-        (b, None if f is None else ~f) for b, f in zip(norm_bits, null_flags)
-    ]
-    return group_by(cols, live, capacity, widths, pre_perm, with_rep)
-
-
 def group_by(
     cols,
     live: torch.Tensor,
@@ -480,9 +460,9 @@ pack_keys.launches = 0
 
 def group_ids_plain(words, same, live_s, perm, capacity: int,
                     with_rep: bool = False) -> GroupInfo:
-    """Plain torch version of K1: the tail of ``sort_group`` after the
-    sort. ``words`` are the sorted packed words (adjacent compare gives
-    the run flags) or None, then ``same`` holds them."""
+    """Plain torch version of K1: the tail of ``kernels.py:sort_group``
+    after the sort. ``words`` are the sorted packed words (adjacent
+    compare gives the run flags) or None, then ``same`` holds them."""
     n = live_s.shape[0]
     dev = live_s.device
     pos = torch.arange(n, dtype=I64, device=dev)

@@ -825,14 +825,25 @@ def _remap_gather(remap: np.ndarray, device):
     return _clamped_gather(remap, device)
 
 
+#: derived tables kept per dictionary; each may be a device table the
+#: size of the dictionary (and a transform's new host dictionary), which
+#: no memory pool counts, so ad-hoc patterns evict the least recent
+DERIVED_PER_DICTIONARY = 4
+
+
 def _dictionary_derived(d: StringDictionary, key, build):
     """``build()``'s result for (dictionary, key), computed once and kept
     with the dictionary (a scan-cached column's dictionary lives across
-    queries, so warm runs skip the host pass over its values)."""
+    queries, so warm runs skip the host pass over its values), for the
+    ``DERIVED_PER_DICTIONARY`` most recently used keys."""
     hit = d.derived.get(key)
     if hit is None:
         hit = build()
         d.derived[key] = hit
+        while len(d.derived) > DERIVED_PER_DICTIONARY:
+            d.derived.popitem(last=False)
+    else:
+        d.derived.move_to_end(key)
     return hit
 
 

@@ -20,6 +20,7 @@ depend on them) match it exactly.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass, replace
 from typing import Sequence
 
@@ -72,8 +73,9 @@ class StringDictionary:
         # values must be sorted & unique (callers use from_strings)
         self.values = values
         #: tables computed once from the values (the expression
-        #: compiler's LIKE lookups and transform remaps), by key
-        self.derived: dict = {}
+        #: compiler's LIKE lookups and transform remaps), by key, least
+        #: recently used first; the compiler bounds how many stay
+        self.derived: OrderedDict = OrderedDict()
 
     @staticmethod
     def from_strings(strings: Sequence[str]) -> tuple["StringDictionary", np.ndarray]:

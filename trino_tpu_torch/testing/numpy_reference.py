@@ -19,7 +19,9 @@ String predicates are Python string methods (``in``, ``startswith``,
 
 from __future__ import annotations
 
+import math
 from decimal import Decimal
+from fractions import Fraction
 
 import numpy as np
 
@@ -27,7 +29,8 @@ from trino_tpu_torch import types as T
 
 __all__ = [
     "q01", "q02", "q03", "q04", "q09", "q11", "q13", "q14", "q16", "q17",
-    "q18", "q20", "q21", "q22", "fj", "FJ_SQL", "q18_sql", "rows_match",
+    "q18", "q20", "q21", "q22", "fj", "FJ_SQL", "q11_sql", "q18_sql",
+    "rows_match",
 ]
 
 #: a full outer join with unmatched rows on both sides (no TPC-H query
@@ -46,6 +49,22 @@ def q18_sql(threshold: int = 300) -> str:
     if "> 300" not in sql:
         raise ValueError("Q18 text has no '> 300' threshold")
     return sql.replace("> 300", f"> {int(threshold)}")
+
+
+#: Q11's FRACTION as the query text writes it (TPC-H 2.4.11.3: 0.0001/SF)
+Q11_FRACTION = "0.0001000000"
+
+
+def q11_sql(fraction: str = Q11_FRACTION) -> str:
+    """TPC-H Q11 with its FRACTION (a decimal literal), which the
+    specification scales as 0.0001 / SF."""
+    from trino_tpu_torch.connectors.tpch.queries import QUERIES
+
+    sql = QUERIES["q11"]
+    if f"* {Q11_FRACTION}" not in sql:
+        raise ValueError(f"Q11 text has no '* {Q11_FRACTION}' fraction")
+    Decimal(fraction)  # a decimal literal, nothing else
+    return sql.replace(f"* {Q11_FRACTION}", f"* {fraction}")
 
 
 def _exact_sum(x: np.ndarray) -> int:
@@ -294,9 +313,9 @@ def fj(data) -> list[tuple]:
 
 def rows_match(name: str, got, want) -> bool:
     """The engine's rows against a reference's: equal, with DOUBLEs to
-    relative 1e-12 (Q14, Q17) and, for Q11, whose ORDER BY value leaves
-    ties in no defined order, the value column equal in order and the
-    rows equal as a set."""
+    relative 1e-12 (Q14, Q17; a NaN matches nothing) and, for Q11, whose
+    ORDER BY value leaves ties in no defined order, the value column
+    equal in order and the rows equal as a set."""
     if len(got) != len(want):
         return False
     if name == "q11":
@@ -309,7 +328,9 @@ def rows_match(name: str, got, want) -> bool:
             return False
         for a, b in zip(g, w):
             if isinstance(b, float):
-                if not isinstance(a, float) or abs(a - b) > 1e-12 * abs(b):
+                if not isinstance(a, float) or not math.isclose(
+                    a, b, rel_tol=1e-12, abs_tol=0.0
+                ):
                     return False
             elif type(a) is not type(b) or a != b:
                 return False
@@ -432,9 +453,9 @@ def q09(data) -> list[tuple]:
     return sorted(rows, key=lambda r: (r[0], -r[1]))
 
 
-def q11(data) -> list[tuple]:
-    """TPC-H Q11 rows: German stock value per part above 0.0001 of the
-    German total, largest first (ties by p_partkey)."""
+def q11(data, fraction: str = Q11_FRACTION) -> list[tuple]:
+    """TPC-H Q11 rows: German stock value per part above ``fraction``
+    of the German total, largest first (ties by p_partkey)."""
     s_key = data.column("supplier", "s_suppkey")
     germany = data.column("nation", "n_nationkey")[
         _str(data, "nation", "n_name") == "GERMANY"
@@ -448,10 +469,11 @@ def q11(data) -> list[tuple]:
     total = _exact_sum(value)
     keys, inv = np.unique(data.column("partsupp", "ps_partkey")[sel], return_inverse=True)
     sums = _group_sums(inv, value, len(keys))
-    # value > total * 0.0001000000, exactly: value * 10^4 > total
+    # value > total * fraction, exactly: value * den > total * num
+    frac = Fraction(fraction)
     rows = [
         (int(k), _dec(int(v), 2)) for k, v in zip(keys, sums)
-        if int(v) * 10_000 > total
+        if int(v) * frac.denominator > total * frac.numerator
     ]
     return sorted(rows, key=lambda r: (-r[1], r[0]))
 
