@@ -10,35 +10,55 @@ Run from the repository root, with no arguments:
    nvcc for sm_90a (all sources in parallel).
 3. Kernel phases: each kernel (K1 group_ids, K2 seg_sum, K3 join_probe,
    K4 expand_matches, K5 range_any, K6 scatter_any, K7 hash_keys, K8
-   pack_words, K9 seg_minmax, K10 order_words) runs on the card at the
-   main path's shapes (TPC-H SF10 scale: 60M rows with 4 and with 1.5M
-   groups, and 8M partsupp rows in 2M groups; a 15M-row build side
+   pack_words, K9 seg_minmax, K10 order_words, W1 window_peers, W2
+   range_sum, W3 range_minmax, W4 seg_searchsorted) runs on the card at
+   the main path's shapes (TPC-H SF10 scale: 60M rows with 4 and with
+   1.5M groups, and 8M partsupp rows in 2M groups; a 15M-row build side
    against a 60M-row probe; 15M probe rows of 1-7 matches each, ~60M
    expanded positions, also with one hot probe row owning 10% of them;
    60M indices into 15M slots; 60M rows of two and of three join-key
    parts; 60M rows of one and of three GROUP BY keys to pack; 15M orders
-   rows of two ORDER BY keys), is held against its plain torch version
-   on the same inputs (integers, booleans, min/max and sort words
-   exactly, float64 sums to relative 1e-12; K1's representative flags
-   and K10's permutation too), and is timed beside the plain version,
-   one PyTorch library call that computes the same function where there
-   is one, and the least time the card could take (bytes each input read
-   once and each output written once, over 3.35 TB/s of HBM; K5 counts
-   the out_live bytes up to each range's first live position, where its
-   scan stops).
-4. Main path: ``QueryRunner.tpch("sf1")`` and ``QueryRunner.tpch("sf10")``
-   on cuda run TPC-H Q1, Q3, Q18, Q4, Q17, Q21, a full outer join and
-   Q2, Q9, Q11, Q13, Q14, Q16, Q20, Q22 (tables resident on the card;
-   Q11's FRACTION is 0.0001 / SF, as TPC-H sets it). Rows must equal the
-   exact numpy reference
+   rows of two ORDER BY keys. TPC-DS SF10 scale: 28.8M store_sales rows
+   in 120 store partitions under a RANGE 6 preceding frame, also with a
+   float64 key and values holding NaN, -0.0 and a partition of 1e18s;
+   q51's 5.5M rows in 180K item partitions of decimal(38,2) limbs), is
+   held against its plain torch version on the same inputs (integers,
+   booleans, positions, min/max and sort words exactly, float64 group
+   sums to relative 1e-12 and float64 frame sums to relative 1e-9 each;
+   K1's representative flags and K10's permutation too), and is timed
+   beside the plain version, one PyTorch library call that computes the
+   same function where there is one, and the least time the card could
+   take (bytes each input read once and each output written once, over
+   3.35 TB/s of HBM; K5 counts the out_live bytes up to each range's
+   first live position, where its scan stops). Beside K1's Q1 case,
+   ``stage._presort_shared``'s stacked gather of five int64 columns is
+   timed against one gather per column.
+4. Main path, TPC-H: ``QueryRunner.tpch("sf10")`` on cuda runs TPC-H
+   Q1, Q3, Q18, Q4, Q17, Q21, a full outer join and Q2, Q9, Q11, Q13,
+   Q14, Q16, Q20, Q22 (tables resident on the card; Q11's FRACTION is
+   0.0001 / SF, as TPC-H sets it). Its SF1 runs were dropped to keep the
+   script inside its time limit once the TPC-DS path joined it. Rows must equal the exact numpy reference
    (``trino_tpu_torch.testing.numpy_reference.rows_match``: Q14's and
    Q17's one DOUBLE to relative 1e-12), cold and in 3 warm runs. Every
    query runs under ``query_max_memory_per_node``'s default, except Q9 at
    SF10, which must first fail under it with ExceededMemoryLimitError
-   (the port has no spill tier yet) and then runs with the cap raised. Every
-   kernel's launch count is set to 0 before the main path and must be
-   non-zero after it; the launches of each query's runs are printed.
-5. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
+   (the port has no spill tier yet) and then runs with the cap raised.
+5. Main path, TPC-DS: the TPC-H runner is released, then
+   ``QueryRunner.tpcds("sf1")`` and ``QueryRunner.tpcds("sf10")`` run
+   q3, q98, q51 over 1999 (its text's months 1200-1211 count from 1900;
+   this generator counts from 1990) and the totals of its windowed
+   relation, q86 (ROLLUP, grouping(), rank()) and a RANGE offset window
+   over all of store_sales (``numpy_reference.RANGE7_SQL``), each held
+   against its exact numpy reference (q98's DOUBLE ratio to relative
+   1e-12), cold and in 3 warm runs; the peak device memory of each
+   scale is printed. A statement whose join exceeds
+   ``query_max_memory_per_node``'s default raises ExceededMemoryLimitError
+   (no spill tier yet) and then runs with the cap at 64GB; the output
+   says which. Each path runs with every kernel's launch count set
+   to 0 just before it: K1-K10 must be launched on the TPC-H path and
+   W1-W4 on the TPC-DS path; the launches of each query's runs are
+   printed.
+6. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Any build failure, launch error or mismatch exits non-zero. Without CUDA,
@@ -62,6 +82,14 @@ LINEITEM_ROWS = 60_000_000
 ORDERS_ROWS = 15_000_000
 PARTSUPP_ROWS = 8_000_000
 PART_ROWS = 2_000_000
+#: TPC-DS SF10 shapes of the window kernel phases: store_sales (the RANGE
+#: offset window over 120 stores and the sales days 1998-01-02 to
+#: 2002-12-30) and q51's windowed relation over 180K items
+DS_SALES_ROWS = 28_800_000
+DS_STORES = 120
+DS_DAYS = 1824
+Q51_ROWS = 5_500_000
+Q51_ITEMS = 180_000
 #: the TPC-H queries that string predicates, DISTINCT aggregates and the
 #: cross join brought onto the card
 NEW_QUERIES = ("q02", "q09", "q11", "q13", "q14", "q16", "q20", "q22")
@@ -196,6 +224,28 @@ def k2_phase(torch, np, K, info, dtype_name: str, n_groups: int) -> dict:
         # values (8 B/row) and starts/ends (16 B/slot) in, sums out
         "bound_ms": bound_ms(n * 8 + cap * 24),
         "rows": n, "capacity": cap, "dtype": dtype_name,
+    }
+
+
+def presort_phase(torch, np, perm) -> dict:
+    """``stage._presort_shared``'s stacked gather at Q1's SF10 shape: the
+    five int64 value columns of Q1's sums (quantity, price, discount,
+    discounted price, charge) gathered into group order by ``perm`` as
+    one [5, n] stack, beside one gather per column."""
+    rng = np.random.default_rng(SEED + 300)
+    n = perm.shape[0]
+    xs = [torch.from_numpy(rng.integers(0, 1 << 40, size=n)).to(perm.device)
+          for _ in range(5)]
+    stacked = torch.stack(xs)[:, perm]
+    for i, x in enumerate(xs):
+        if not same(torch, stacked[i], x[perm]):
+            fail("presort_shared: the stacked gather differs from a column gather")
+    return {
+        "rows": n, "columns": len(xs),
+        "ms": timed_ms(torch, lambda: torch.stack(xs)[:, perm]),
+        "per_column_ms": timed_ms(torch, lambda: [x[perm] for x in xs]),
+        # the columns and perm read once, the gathered columns written once
+        "bound_ms": bound_ms(n * 8 * len(xs) * 2 + n * 8),
     }
 
 
@@ -596,12 +646,227 @@ def k10_phase(torch, K, keys, live) -> dict:
     }
 
 
+# ---- window kernel phases ----------------------------------------------------
+
+
+def partition_bounds(torch, gid):
+    """Each sorted row's partition start and end from non-decreasing ids."""
+    n = gid.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=gid.device)
+    first = torch.ones(n, dtype=torch.bool, device=gid.device)
+    first[1:] = gid[1:] != gid[:-1]
+    starts = pos[first]
+    ends = torch.cat([starts[1:], torch.tensor([n], device=gid.device)])
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    return starts[seg].contiguous(), ends[seg].contiguous()
+
+
+def range7_case(torch, np, dev):
+    """ds_range7's window at SF10: 28.8M store_sales rows sorted by
+    (store, sold date), 120 partitions, the date key in original row
+    order behind a random permutation, and the RANGE frame of
+    `6 preceding and current row` (found with the row-offset
+    searchsorted yardstick)."""
+    rng = np.random.default_rng(SEED + 200)
+    n = DS_SALES_ROWS
+    store = torch.from_numpy(np.sort(rng.integers(0, DS_STORES, size=n))).to(dev)
+    day = torch.from_numpy(rng.integers(0, DS_DAYS, size=n) + 2450816).to(dev)
+    order = torch.sort(store * 4096 + (day - 2450816)).indices
+    gid, w = store.contiguous(), day[order].contiguous()
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    key = torch.empty_like(w)
+    key[perm] = w  # the key column in original row order
+    pstart, pend = partition_bounds(torch, gid)
+    paid = torch.from_numpy(rng.integers(0, 2_000_000, size=n)).to(dev)
+    return gid, key, perm, w, pstart, pend, paid
+
+
+def encoded_search(torch, gid, w, target, right: bool):
+    """The row-offset searchsorted yardstick: partition id and key in
+    one monotone int64, one torch.searchsorted over all rows."""
+    off = 1 << 20
+    enc = gid * (1 << 40) + (w - w.min() + off)
+    tgt = gid * (1 << 40) + (target - w.min() + off)
+    return torch.searchsorted(enc, tgt, right=right)
+
+
+def w1_phase(torch, K, gid, keys, perm, pend, with_dense) -> dict:
+    got = K.window_peers(gid, keys, perm, pend, with_dense)
+    want = K.window_peers_plain(gid, keys, perm, pend, with_dense)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("peer_start", "peer_end", "dense"), got, want):
+        if (a is None) != (b is None) or (a is not None and not same(torch, a, b)):
+            fail(f"window_peers: {name} differs from the plain version")
+    n = gid.shape[0]
+    key_bytes = sum(
+        d.shape[0] * d.element_size() + (0 if v is None else v.shape[0])
+        for d, v in keys
+    )
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.window_peers(gid, keys, perm, pend, with_dense)),
+        "plain_ms": timed_ms(torch, lambda: K.window_peers_plain(gid, keys, perm, pend, with_dense)),
+        "library_ms": None,  # no PyTorch call finds peer groups
+        # gid, perm, pend (8 B each) and the keys in; peer_start and
+        # peer_end (8 B each) and dense (8 B) out
+        "bound_ms": bound_ms(n * 24 + key_bytes + n * (24 if with_dense else 16)),
+        "rows": n, "key_parts": len(keys),
+        "peer_groups": int(got[0].unique_consecutive().numel()),
+    }
+
+
+def w2_phase(torch, K, lanes, gid, lo, hi, library) -> dict:
+    got = K.range_sum(lanes, gid, lo, hi)
+    want = K.range_sum_plain(lanes, gid, lo, hi)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want):
+        if a.dtype.is_floating_point:
+            num = ~torch.isnan(b)
+            if not same(torch, torch.isnan(a), ~num):
+                fail("range_sum: NaN positions differ from the plain version")
+            # each frame to relative 1e-9 of its own sum: a small
+            # partition beside a partition of 1e18s keeps its precision
+            d = (a[num] - b[num]).abs()
+            bad = d > 1e-9 * b[num].abs()
+            if bool(bad.any()):
+                fail(f"range_sum float64: {int(bad.sum())} frames beyond "
+                     "relative 1e-9 of the plain version")
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        elif not same(torch, a, b):
+            fail("range_sum: an integer lane differs from the plain version")
+    n = gid.shape[0]
+    return {
+        "max_abs_err": err,
+        "ms": timed_ms(torch, lambda: K.range_sum(lanes, gid, lo, hi)),
+        "plain_ms": timed_ms(torch, lambda: K.range_sum_plain(lanes, gid, lo, hi)),
+        "library_ms": None if library is None else timed_ms(torch, library),
+        # per lane the values in and the sums out (8 B each); gid, lo, hi
+        "bound_ms": bound_ms(n * 16 * len(lanes) + n * 24),
+        "rows": n, "lanes": len(lanes),
+    }
+
+
+def cumsum_frames(torch, lanes, lo, hi):
+    """The int64 yardstick of W2: torch.cumsum and the frame gathers."""
+    out = []
+    for v in lanes:
+        cs = torch.cumsum(v, 0)
+        top = cs[(hi - 1).clamp(min=0)]
+        bot = torch.where(lo > 0, cs[(lo - 1).clamp(min=0)], 0)
+        out.append(torch.where(hi > lo, top - bot, 0))
+    return out
+
+
+def w3_phase(torch, K, vals, gid, lo, hi, fill, is_min, library) -> dict:
+    got = K.range_minmax(vals, gid, lo, hi, fill, is_min)
+    want = K.range_minmax_plain(vals, gid, lo, hi, fill, is_min)
+    torch.cuda.synchronize()
+    if not nan_equal(torch, got, want):
+        fail(f"range_minmax {vals.dtype} {tuple(vals.shape)} differs from the plain version")
+    n = gid.shape[0]
+    width = vals.numel() // max(n, 1) * vals.element_size()
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.range_minmax(vals, gid, lo, hi, fill, is_min)),
+        "plain_ms": timed_ms(torch, lambda: K.range_minmax_plain(vals, gid, lo, hi, fill, is_min)),
+        "library_ms": None if library is None else timed_ms(torch, library),
+        # values in and results out; gid, lo and hi
+        "bound_ms": bound_ms(n * 2 * width + n * 24),
+        "rows": n,
+    }
+
+
+def w4_phase(torch, K, gid, w, target, pstart, pend, left) -> dict:
+    got = K.seg_searchsorted(w, target, pstart, pend, left)
+    want = K.seg_searchsorted_plain(w, target, pstart, pend, left)
+    lib = encoded_search(torch, gid, w, target, right=not left)
+    torch.cuda.synchronize()
+    if not same(torch, got, want):
+        fail("seg_searchsorted differs from the plain version")
+    if not same(torch, lib, want):
+        fail("seg_searchsorted: the searchsorted yardstick disagrees")
+    n = w.shape[0]
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.seg_searchsorted(w, target, pstart, pend, left)),
+        "plain_ms": timed_ms(torch, lambda: K.seg_searchsorted_plain(w, target, pstart, pend, left)),
+        "library_ms": timed_ms(torch, lambda: encoded_search(torch, gid, w, target, not left)),
+        # w, target, lo0, hi0 in (8 B each), positions out
+        "bound_ms": bound_ms(n * 40),
+        "rows": n,
+    }
+
+
+def window_phases(torch, np, K, dev) -> dict:
+    """W1-W4 at the TPC-DS SF10 shapes of the main path."""
+    out = {}
+    gid, key, perm, w, pstart, pend, paid = range7_case(torch, np, dev)
+    n = gid.shape[0]
+    out["w1"] = w1_phase(torch, K, gid, [(key, None)], perm, pend, False)
+    lo = encoded_search(torch, gid, w, w - 6, right=False)
+    hi = encoded_search(torch, gid, w, w, right=True)
+    out["w4_left"] = w4_phase(torch, K, gid, w, w - 6, pstart, pend, True)
+    out["w4_right"] = w4_phase(torch, K, gid, w, w, pstart, pend, False)
+    ones = torch.ones(n, dtype=torch.int64, device=dev)
+    lanes = [ones, paid]
+    out["w2"] = w2_phase(torch, K, lanes, gid, lo, hi,
+                         lambda: cumsum_frames(torch, lanes, lo, hi))
+    # float64 ROWS frames, NaN and -0.0, and a partition of 1e18s
+    rng = np.random.default_rng(SEED + 201)
+    x = rng.uniform(1.0, 1000.0, size=n)
+    x[rng.random(n) < 1e-6] = np.nan
+    x[rng.random(n) < 0.01] = -0.0
+    fx = torch.from_numpy(x).to(dev)
+    fx = torch.where(gid == 0, torch.full_like(fx, 1e18), fx)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    rlo = torch.maximum(pos - 2, pstart)
+    rhi = torch.minimum(pos + 3, pend)
+    counts = torch.bincount(gid)
+    lengths = counts[counts > 0]
+    out["w2_float"] = w2_phase(
+        torch, K, [fx], gid, rlo, rhi,
+        lambda: torch.segment_reduce(fx, "sum", lengths=lengths))
+    # running max of int64 and float64 (NaN, -0.0) over prefix frames
+    iv = paid - 1_000_000
+    big = 1 << 40
+    out["w3_int"] = w3_phase(
+        torch, K, iv, gid, pstart, pos + 1, -(1 << 63), False,
+        lambda: torch.cummax(gid * big + (iv + (1 << 39)), 0).values)
+    out["w3_float"] = w3_phase(
+        torch, K, torch.from_numpy(x).to(dev), gid, pstart, pos + 1,
+        float("-inf"), False, None)
+    out["w1_float"] = w1_phase(
+        torch, K, gid, [(torch.from_numpy(x).to(dev),
+                         torch.from_numpy(rng.random(n) >= 0.05).to(dev))],
+        perm, pend, True)
+    del gid, key, perm, w, pstart, pend, paid, lo, hi, ones, lanes, fx, pos
+    del rlo, rhi, iv
+    torch.cuda.empty_cache()
+    # q51's windowed relation: 5.5M rows over 180K items, decimal(38,2)
+    # running sums and running maxima over two limbs
+    m = Q51_ROWS
+    item = torch.from_numpy(np.sort(rng.integers(0, Q51_ITEMS, size=m))).to(dev)
+    qs, qe = partition_bounds(torch, item)
+    qpos = torch.arange(m, dtype=torch.int64, device=dev)
+    wide = rng.integers(0, 1 << 44, size=m)
+    limbs = torch.from_numpy(np.stack([wide >> 32, wide & 0xFFFFFFFF], axis=-1)).to(dev)
+    hi_l, lo_l = limbs[:, 0].contiguous(), limbs[:, 1].contiguous()
+    cnt = torch.ones(m, dtype=torch.int64, device=dev)
+    q51_lanes = [cnt, hi_l, lo_l]
+    out["w2_q51"] = w2_phase(torch, K, q51_lanes, item, qs, qpos + 1,
+                             lambda: cumsum_frames(torch, q51_lanes, qs, qpos + 1))
+    out["w3_q51"] = w3_phase(torch, K, limbs, item, qs, qpos + 1,
+                             K._limb_fill(False), False, None)
+    return out
+
+
 # ---- main path ---------------------------------------------------------------
 
 
 #: Q11's FRACTION per scale (TPC-H 2.4.11.3: 0.0001 / SF), so that SF10's
 #: answer has rows to compare
-Q11_FRACTION = {"sf1": "0.0001000000", "sf10": "0.0000100000"}
+Q11_FRACTION = {"sf10": "0.0000100000"}
 #: the queries that need more than query_max_memory_per_node's 2GB
 #: default: the port has no spill tier yet (ROADMAP Queue 1, step 12),
 #: so a join over the per-node cap cannot be revoked to the host, and
@@ -610,10 +875,42 @@ Q11_FRACTION = {"sf1": "0.0001000000", "sf10": "0.0000100000"}
 OVER_DEFAULT_CAP = {("q09", "sf10"): "64GB"}
 
 
+def run_query(torch, K, runner, data, name, sql, ref, scale, R) -> dict:
+    """One statement: a cold run checked against its numpy reference,
+    then 3 warm runs that must give the same rows."""
+    before = {k: fn.launches for k, fn in K.KERNELS.items()}
+    tc = time.perf_counter()
+    rows = runner.execute(sql).rows
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - tc) * 1e3
+    want = ref(data)
+    if not R.rows_match(name, rows, want):
+        fail(f"{name} at {scale}: rows differ from the numpy reference"
+             f"\n got  {rows[:3]}\n want {want[:3]}")
+    warm = []
+    for _ in range(3):
+        tw = time.perf_counter()
+        again = runner.execute(sql).rows
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - tw) * 1e3)
+        if again != rows:
+            fail(f"{name} at {scale}: a warm run's rows differ")
+    per_query = {k: fn.launches - before[k] for k, fn in K.KERNELS.items()}
+    print(f"main path {name} {scale}: {len(rows)} rows equal the numpy "
+          f"reference; cold {cold_ms:.1f} ms, warm median "
+          f"{statistics.median(warm):.2f} ms (range {min(warm):.2f}-"
+          f"{max(warm):.2f}); launches in 4 runs {per_query}", flush=True)
+    return {
+        "rows": len(rows), "cold_ms": cold_ms, "warm_ms": warm,
+        "warm_median_ms": statistics.median(warm), "launches_4_runs": per_query,
+    }
+
+
 def main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError) -> dict:
+    """The TPC-H path at SF10 (its SF1 runs were dropped to keep the
+    script inside its time limit once the TPC-DS path joined it)."""
     results = {}
-    K.reset_launches()
-    for scale in ("sf1", "sf10"):
+    for scale in ("sf10",):
         fraction = Q11_FRACTION[scale]
         queries = [
             ("q01", QUERIES["q01"], R.q01),
@@ -648,43 +945,97 @@ def main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError) -> di
                     fail(f"{name} at {scale} ran under the default "
                          "query_max_memory_per_node; drop its raised cap")
                 runner.session.properties["query_max_memory_per_node"] = cap
-            before = {k: fn.launches for k, fn in K.KERNELS.items()}
-            tc = time.perf_counter()
-            rows = runner.execute(sql).rows
-            torch.cuda.synchronize()
-            cold_ms = (time.perf_counter() - tc) * 1e3
-            want = ref(data)
-            if not R.rows_match(name, rows, want):
-                fail(f"{name} at {scale}: rows differ from the numpy reference"
-                     f"\n got  {rows[:3]}\n want {want[:3]}")
-            warm = []
-            for _ in range(3):
-                tw = time.perf_counter()
-                again = runner.execute(sql).rows
-                torch.cuda.synchronize()
-                warm.append((time.perf_counter() - tw) * 1e3)
-                if again != rows:
-                    fail(f"{name} at {scale}: a warm run's rows differ")
-            per_query = {
-                k: fn.launches - before[k] for k, fn in K.KERNELS.items()
-            }
+            res = run_query(torch, K, runner, data, name, sql, ref, scale, R)
             if cap is not None:
                 runner.session.properties.pop("query_max_memory_per_node")
-            results[f"{name}_{scale}"] = {
-                "rows": len(rows), "cold_ms": cold_ms, "cap": cap,
-                "warm_ms": warm, "warm_median_ms": statistics.median(warm),
-                "launches_4_runs": per_query,
-            }
-            print(f"main path {name} {scale}: {len(rows)} rows equal the "
-                  f"numpy reference; cold {cold_ms:.1f} ms, warm median "
-                  f"{statistics.median(warm):.2f} ms (range {min(warm):.2f}-"
-                  f"{max(warm):.2f}); launches in 4 runs {per_query}",
-                  flush=True)
+            results[f"{name}_{scale}"] = dict(res, cap=cap)
         results[f"{scale}_peak_bytes"] = torch.cuda.max_memory_allocated()
         results[f"{scale}_seconds"] = time.perf_counter() - t0
         del runner, data
         torch.cuda.empty_cache()
     return results
+
+
+#: q51 runs over 1999 (d_month_seq 108-119): its text's 1200-1211 counts
+#: months from 1900, this generator from 1990, so as written it selects
+#: no rows at any scale
+Q51_MONTH = 108
+
+
+#: the per-node cap a TPC-DS statement runs under when its join exceeds
+#: the 2GB default (what the 80 GB card holds)
+SPILL_FREE_CAP = "64GB"
+
+
+def tpcds_path(torch, K, QueryRunner, DS_QUERIES, R, ExceededMemoryLimitError) -> dict:
+    """The TPC-DS path at SF1 and SF10: a star join (q3), a window sum
+    over aggregates (q98), a FULL join under running sums and running
+    maxima over decimal(38,2) (q51 and the totals of its windowed
+    relation), ROLLUP with grouping() and rank() (q86) and a RANGE offset
+    window over all of store_sales (RANGE7_SQL). A statement whose join
+    exceeds query_max_memory_per_node's default runs again under
+    SPILL_FREE_CAP, and says so."""
+    statements = [
+        ("ds_q03", DS_QUERIES["q3"], R.ds_q03),
+        ("ds_q98", DS_QUERIES["q98"], R.ds_q98),
+        ("ds_q51", R.q51_sql(Q51_MONTH), lambda d: R.ds_q51(d, Q51_MONTH)),
+        ("ds_q51_totals", R.q51_totals_sql(Q51_MONTH),
+         lambda d: R.ds_q51_totals(d, Q51_MONTH)),
+        ("ds_q86", DS_QUERIES["q86"], R.ds_q86),
+        ("ds_range7", R.RANGE7_SQL, R.ds_range7),
+    ]
+    results = {}
+    for scale in ("sf1", "sf10"):
+        t0 = time.perf_counter()
+        runner = QueryRunner.tpcds(scale)
+        if runner.device.type != "cuda":
+            fail(f"TPC-DS runner for {scale} is on {runner.device}")
+        data = runner.metadata.connector("tpcds").data(scale)
+        torch.cuda.reset_peak_memory_stats()
+        for name, sql, ref in statements:
+            try:
+                res = run_query(torch, K, runner, data, name, sql, ref, scale, R)
+            except ExceededMemoryLimitError as e:
+                # a join over the per-node cap: the port has no spill tier
+                # to revoke it to (ROADMAP Queue 1, step 12), so the
+                # statement runs again with the cap at what the card holds
+                print(f"main path {name} {scale}: under the default cap: "
+                      f"{str(e)[:160]}; again with the cap at "
+                      f"{SPILL_FREE_CAP}", flush=True)
+                runner.session.properties["query_max_memory_per_node"] = SPILL_FREE_CAP
+                res = dict(run_query(torch, K, runner, data, name, sql, ref,
+                                     scale, R), cap=SPILL_FREE_CAP)
+                runner.session.properties.pop("query_max_memory_per_node")
+            results[f"{name}_{scale}"] = res
+        results[f"{scale}_peak_bytes"] = torch.cuda.max_memory_allocated()
+        results[f"{scale}_seconds"] = time.perf_counter() - t0
+        print(f"TPC-DS {scale}: peak device memory "
+              f"{results[f'{scale}_peak_bytes'] / 1e9:.2f} GB, "
+              f"{results[f'{scale}_seconds']:.1f} s", flush=True)
+        del runner, data
+        torch.cuda.empty_cache()
+    return results
+
+
+#: the kernels each path must launch
+TPCH_KERNELS = (
+    "group_ids", "seg_sum", "join_probe", "expand_matches", "range_any",
+    "scatter_any", "hash_keys", "pack_words", "seg_minmax", "order_words",
+)
+WINDOW_KERNELS = ("window_peers", "range_sum", "range_minmax", "seg_searchsorted")
+
+
+def drive(torch, K, label, kernels, fn):
+    """Run one path with every launch count set to 0 just before it;
+    fail if one of ``kernels`` was never launched in it."""
+    K.reset_launches()
+    out = fn()
+    launches = {k: f.launches for k, f in K.KERNELS.items()}
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the {label} path: {missing}")
+    print(f"{label} path launches: {launches}", flush=True)
+    return out, launches
 
 
 def main() -> int:
@@ -707,6 +1058,7 @@ def main() -> int:
     os.environ["TRINO_TPU_DATA_CACHE"] = "off"
     import numpy as np
 
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES as DS_QUERIES
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
     from trino_tpu_torch.engine import QueryRunner
     from trino_tpu_torch.exec import kernels as K
@@ -730,6 +1082,8 @@ def main() -> int:
     k2_q1f = k2_phase(torch, np, K, info_q1, "float64", 4)
     k9_q1 = k9_phase(torch, np, K, info_q1, "int64", 1)
     k9_q1f = k9_phase(torch, np, K, info_q1, "float64", 2)
+    presort = presort_phase(torch, np, perm)
+    print("presort_shared " + json.dumps(presort), flush=True)
     del ps, live_s, perm
     ps, live_s, perm, cap = group_case(torch, np, K, shapes, dev, 1_500_000)
     k1_q3, info_q3 = k1_phase(torch, K, ps, live_s, perm, cap)
@@ -762,6 +1116,8 @@ def main() -> int:
     k6 = k6_phase(torch, K, idx, flags)
     del idx, flags
     torch.cuda.empty_cache()
+    wk = window_phases(torch, np, K, dev)
+    torch.cuda.empty_cache()
     sources = {
         "group_ids": ("trino_tpu_torch/csrc/group_ids.cu",
                       "trino_tpu/exec/kernels.py:166"),
@@ -783,6 +1139,14 @@ def main() -> int:
                        "trino_tpu/exec/kernels.py:384"),
         "order_words": ("trino_tpu_torch/csrc/order_words.cu",
                         "trino_tpu/exec/kernels.py:515"),
+        "window_peers": ("trino_tpu_torch/csrc/window_peers.cu",
+                         "trino_tpu/exec/window.py:94"),
+        "range_sum": ("trino_tpu_torch/csrc/range_sum.cu",
+                      "trino_tpu/exec/window.py:429"),
+        "range_minmax": ("trino_tpu_torch/csrc/range_minmax.cu",
+                         "trino_tpu/exec/window.py:464"),
+        "seg_searchsorted": ("trino_tpu_torch/csrc/seg_searchsorted.cu",
+                             "trino_tpu/exec/window.py:412"),
     }
     rows = f"{LINEITEM_ROWS / 1e6:g}M rows"
     join = f"{ORDERS_ROWS / 1e6:g}M build, {LINEITEM_ROWS / 1e6:g}M probe"
@@ -823,6 +1187,29 @@ def main() -> int:
     entries["order_words"] = dict(
         k10, case=f"{ORDERS_ROWS / 1e6:g}M rows: float64 DESC with NULLs, "
                   "int32 ASC, 10% dead")
+    sales = f"{DS_SALES_ROWS / 1e6:g}M rows in {DS_STORES} partitions"
+    q51 = f"{Q51_ROWS / 1e6:g}M rows in {Q51_ITEMS // 1000}K partitions"
+    entries["window_peers"] = dict(
+        wk["w1"], case=f"{sales}, one int64 key (ds_range7)",
+        cases=[dict(wk["w1_float"], case=f"{sales}, a nullable float64 key "
+                    "with NaN and -0.0, dense count")])
+    entries["range_sum"] = dict(
+        wk["w2"], case=f"{sales}, RANGE 6 preceding frames, count and "
+                       "int64 lanes (ds_range7)",
+        cases=[dict(wk["w2_float"], case=f"{sales}, ROWS frames, float64 with "
+                    "NaN, -0.0 and a partition of 1e18s (library: "
+                    "segment_reduce)"),
+               dict(wk["w2_q51"], case=f"{q51}, running frames, count and two "
+                    "limb lanes (q51)")])
+    entries["range_minmax"] = dict(
+        wk["w3_q51"], case=f"{q51}, running max over decimal(38,2) limbs (q51)",
+        cases=[dict(wk["w3_int"], case=f"{sales}, running max, int64 "
+                    "(library: cummax over gid-offset keys)"),
+               dict(wk["w3_float"], case=f"{sales}, running max, float64 with "
+                    "NaN and -0.0")])
+    entries["seg_searchsorted"] = dict(
+        wk["w4_left"], case=f"{sales}, left search of key - 6 (ds_range7)",
+        cases=[dict(wk["w4_right"], case=f"{sales}, right search of key")])
     for name, e in entries.items():
         print(f"kernel {name} [{e['case']}]: {e['ms']:.3f} ms, plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']} ms, bound "
@@ -833,13 +1220,17 @@ def main() -> int:
                   f"bound {c['bound_ms']:.3f} ms; max_abs_err "
                   f"{c['max_abs_err']}", flush=True)
 
-    # ---- main path
-    path = main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError)
-    launches = {k: fn.launches for k, fn in K.KERNELS.items()}
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+    # ---- main path: TPC-H, then TPC-DS, each with the counts set to 0
+    path, tpch_launches = drive(
+        torch, K, "TPC-H", TPCH_KERNELS,
+        lambda: main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError))
     print("main_path " + json.dumps(path, sort_keys=True), flush=True)
+    ds_path, ds_launches = drive(
+        torch, K, "TPC-DS", WINDOW_KERNELS,
+        lambda: tpcds_path(torch, K, QueryRunner, DS_QUERIES, R,
+                           ExceededMemoryLimitError))
+    print("tpcds_path " + json.dumps(ds_path, sort_keys=True), flush=True)
+    launches = {k: tpch_launches[k] + ds_launches[k] for k in K.KERNELS}
     print(f"total seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
     kernels = []
@@ -848,6 +1239,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
+            "launches_tpch": tpch_launches[name],
+            "launches_tpcds": ds_launches[name],
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": "bytes", "library_ms": e["library_ms"],

@@ -404,6 +404,168 @@ def test_order_words_kernel(cuda, n, repeat):
     assert torch.equal(K.sort_perm(dev, lv.to(cuda)).cpu(), K.sort_perm(cpu, lv))
 
 
+def _window_case(n, seed, huge=False):
+    """Sorted window rows: partition ids (non-decreasing, dead rows last
+    under one id), each row's partition start and end, and frames inside
+    the partitions (prefix frames when ``prefix``); with ``huge``, half
+    the live rows form one partition."""
+    rng = np.random.default_rng(seed)
+    n_live = int(n * 0.9)
+    gid = np.repeat(np.arange(n), rng.integers(1, 40, size=n))[:n_live]
+    if huge and n_live:
+        gid[: n_live // 2] = 0
+        gid = np.maximum.accumulate(gid)
+    gid = np.concatenate([gid, np.full(n - n_live, n)]).astype(np.int64)
+    pos = np.arange(n)
+    first = np.r_[True, gid[1:] != gid[:-1]][:n]
+    pstart = np.maximum.accumulate(np.where(first, pos, 0)) if n else pos
+    last = np.r_[gid[1:] != gid[:-1], True][:n]
+    pend = (np.minimum.accumulate(np.where(last, pos + 1, n + 1)[::-1])[::-1]
+            if n else pos)
+    a = pstart + rng.integers(0, 30, size=n)
+    b = pstart + rng.integers(0, 30, size=n)
+    lo = np.clip(np.minimum(a, b), pstart, pend)
+    hi = np.clip(np.maximum(a, b) + 1, pstart, pend)
+    t = torch.from_numpy
+    return rng, t(gid), t(pstart.astype(np.int64)), t(pend.astype(np.int64)), t(lo), t(hi)
+
+
+@pytest.mark.parametrize("n,keys", [
+    (0, "int"), (1, "int"), (7, "none"),
+    (300_000, "int"), (300_000, "float_limbs"),
+])
+def test_window_peers_kernel(cuda, n, keys):
+    rng, gid, _ps, pend, _lo, _hi = _window_case(n, seed=n + 1)
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int64))
+    cols = []
+    if keys == "int":
+        cols = [(torch.from_numpy(rng.integers(0, 4, size=n).astype(np.int64)),
+                 torch.from_numpy(rng.random(n) >= 0.2))]
+    elif keys == "float_limbs":
+        f = rng.choice(np.array([0.0, -0.0, np.nan, 2.5]), size=n)
+        limbs = torch.from_numpy(rng.integers(0, 2, size=(n, 2)).astype(np.int64))
+        cols = [(torch.from_numpy(f), None),
+                (limbs[:, 0], torch.from_numpy(rng.random(n) >= 0.3)),
+                (limbs[:, 1], None),
+                (torch.from_numpy(rng.integers(0, 2, size=n).astype(np.int32)), None)]
+    want = K.window_peers(gid, cols, perm, pend, with_dense=True)
+    dev = [(d.to(cuda), None if v is None else v.to(cuda)) for d, v in cols]
+    K.window_peers.launches = 0
+    got = K.window_peers(gid.to(cuda), dev, perm.to(cuda), pend.to(cuda),
+                         with_dense=True)
+    torch.cuda.synchronize()
+    assert K.window_peers.launches == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n,huge", [(0, False), (5, False), (300_000, False),
+                                    (300_000, True)])
+def test_range_sum_kernel(cuda, n, huge):
+    rng, gid, _ps, _pe, lo, hi = _window_case(n, seed=n + 2, huge=huge)
+    ints = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, size=n))
+    f = rng.uniform(1.0, 1000.0, size=n)
+    if huge and n:
+        f[gid.numpy() == 0] = 1e18  # the huge partition beside small ones
+    lanes = [ints, torch.from_numpy(f), torch.from_numpy(rng.integers(0, 1 << 32, size=n))]
+    want = K.range_sum(lanes, gid, lo, hi)
+    K.range_sum.launches = 0
+    got = K.range_sum([x.to(cuda) for x in lanes], gid.to(cuda), lo.to(cuda), hi.to(cuda))
+    torch.cuda.synchronize()
+    assert K.range_sum.launches == 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])
+    # float64: a segmented scan in another order of addition
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("n,dtype", [
+    (0, "int64"), (9, "float64"), (300_000, "int64"), (300_000, "float64"),
+    (300_000, "limbs"),
+])
+def test_range_minmax_kernel(cuda, n, dtype):
+    rng, gid, pstart, _pe, _lo, hi = _window_case(n, seed=n + 3)
+    lo = pstart  # prefix frames
+    contrib = rng.random(n) >= 0.2
+    for is_min in (True, False):
+        if dtype == "limbs":
+            wide = rng.integers(-(1 << 40), 1 << 40, size=n)
+            data = np.stack([wide >> 32, wide & 0xFFFFFFFF], axis=-1)
+            fill = K._limb_fill(is_min)
+            vals = torch.from_numpy(np.where(contrib[:, None], data, np.asarray(fill)))
+        elif dtype == "int64":
+            fill = (1 << 63) - 1 if is_min else -(1 << 63)
+            vals = torch.from_numpy(np.where(contrib, rng.integers(-99, 99, size=n), fill))
+        else:
+            fill = float("inf") if is_min else float("-inf")
+            x = rng.choice(np.array([-1.0, -0.0, 0.0, 3.5, np.nan]), p=[.3, .2, .2, .29, .01],
+                           size=n)
+            vals = torch.from_numpy(np.where(contrib, x, fill))
+        want = K.range_minmax(vals, gid, lo, hi, fill, is_min)
+        K.range_minmax.launches = 0
+        got = K.range_minmax(vals.to(cuda), gid.to(cuda), lo.to(cuda), hi.to(cuda),
+                             fill, is_min)
+        torch.cuda.synchronize()
+        assert K.range_minmax.launches == 1
+        assert _nan_equal(got, want), (dtype, is_min)
+
+
+@pytest.mark.parametrize("n,dtype", [(0, "int64"), (6, "float64"),
+                                     (300_000, "int64"), (300_000, "float64")])
+def test_seg_searchsorted_kernel(cuda, n, dtype):
+    rng, gid, pstart, pend, _lo, _hi = _window_case(n, seed=n + 4, huge=True)
+    w = np.empty(n, dtype=np.int64)
+    for s in np.unique(pstart.numpy()):
+        e = int(pend[s])
+        w[s:e] = np.sort(rng.integers(-50, 50, size=e - s))
+    target = w + rng.integers(-6, 7, size=n)
+    w, target = torch.from_numpy(w), torch.from_numpy(target)
+    if dtype == "float64":
+        w, target = w.double() / 2, target.double() / 2
+    for left in (True, False):
+        want = K.seg_searchsorted(w, target, pstart, pend, left)
+        K.seg_searchsorted.launches = 0
+        got = K.seg_searchsorted(w.to(cuda), target.to(cuda), pstart.to(cuda),
+                                 pend.to(cuda), left)
+        torch.cuda.synchronize()
+        assert K.seg_searchsorted.launches == 1
+        assert torch.equal(got.cpu(), want)
+
+
+def test_tiny_tpcds_and_window_statements_on_card(cuda):
+    """TPC-DS (the SMOKE_LOCAL and window queries, q51 over 1999 and its
+    totals, the RANGE offset window) and the TPC-H window and set-operation
+    statements give the same rows on cuda as on cpu."""
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES
+    from trino_tpu_torch.engine import QueryRunner
+    from trino_tpu_torch.testing import numpy_reference as R
+    from trino_tpu_torch.testing.statements import WINDOW_STATEMENTS
+
+    names = [
+        "q3", "q7", "q19", "q25", "q42", "q52", "q55", "q68", "q72", "q95",
+        "q96", "q98", "q12", "q20", "q36", "q44", "q47", "q49", "q51", "q53",
+        "q57", "q63", "q67", "q70", "q86", "q89",
+    ]
+    runs = [
+        (QueryRunner.tpcds("tiny"), QueryRunner.tpcds("tiny", device="cpu"),
+         [QUERIES[q] for q in names]
+         + [R.q51_sql(108), R.q51_totals_sql(108), R.RANGE7_SQL]),
+        (QueryRunner.tpch("tiny"), QueryRunner.tpch("tiny", device="cpu"),
+         list(WINDOW_STATEMENTS.values())),
+    ]
+    for gpu, cpu, statements in runs:
+        assert gpu.device.type == "cuda"
+        for sql in statements:
+            got, want = gpu.execute(sql).rows, cpu.execute(sql).rows
+            assert len(got) == len(want), sql
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
+                    if isinstance(b, float):
+                        # float sums add in another order on the card
+                        assert a == b or abs(a - b) <= 1e-9 * abs(b), (sql, g, w)
+                    else:
+                        assert type(a) is type(b) and a == b, (sql, g, w)
+
+
 def test_tiny_queries_on_card(cuda):
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
     from trino_tpu_torch.engine import QueryRunner

@@ -1,6 +1,6 @@
 """The port stands alone: it loads no JAX and no module of the JAX
 package, runs on the card unless asked for the CPU, and generates the
-same TPC-H data as the reference."""
+same TPC-H and TPC-DS data as the reference."""
 
 import ast
 import os
@@ -29,8 +29,11 @@ def test_running_a_query_loads_no_jax_or_reference_module():
         "import trino_tpu_torch\n"
         "from trino_tpu_torch.engine import QueryRunner\n"
         "from trino_tpu_torch.connectors.tpch.queries import QUERIES\n"
+        "from trino_tpu_torch.connectors.tpcds.queries import QUERIES as DS\n"
         "r = QueryRunner.tpch('tiny', device='cpu')\n"
         "assert len(r.execute(QUERIES['q01']).rows) == 4\n"
+        "ds = QueryRunner.tpcds('tiny', device='cpu')\n"
+        "assert len(ds.execute(DS['q86']).rows) == 100\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     env = dict(os.environ)
@@ -72,14 +75,34 @@ def test_runner_without_device_raises_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         QueryRunner.tpch("tiny")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QueryRunner.tpcds("tiny")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         QueryRunner()
     assert QueryRunner.tpch("tiny", device="cpu").device.type == "cpu"
+    assert QueryRunner.tpcds("tiny", device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("table", ["lineitem", "orders", "customer"])
 def test_generator_columns_are_byte_identical(table):
     from trino_tpu.connectors.tpch.generator import SCHEMAS, TpchData as JaxData
     from trino_tpu_torch.connectors.tpch.generator import TpchData as TorchData
+
+    want, got = JaxData(0.01), TorchData(0.01)
+    for column in SCHEMAS[table].column_names:
+        a, b = got.column(table, column), want.column(table, column)
+        assert a.dtype == b.dtype, column
+        if a.dtype == object:
+            assert np.array_equal(a.astype(str), b.astype(str)), column
+        else:
+            assert a.tobytes() == b.tobytes(), column
+
+
+@pytest.mark.parametrize(
+    "table", ["store_sales", "web_sales", "item", "date_dim", "customer"]
+)
+def test_tpcds_generator_columns_are_byte_identical(table):
+    from trino_tpu.connectors.tpcds.generator import SCHEMAS, TpcdsData as JaxData
+    from trino_tpu_torch.connectors.tpcds.generator import TpcdsData as TorchData
 
     want, got = JaxData(0.01), TorchData(0.01)
     for column in SCHEMAS[table].column_names:

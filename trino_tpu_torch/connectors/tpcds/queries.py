@@ -1,0 +1,5603 @@
+"""Canonical TPC-DS query texts (spec templates with standard
+parameter substitutions), restated in the engine dialect.
+
+The analog of the reference's TPC-DS benchmark query set
+(testing/trino-benchto-benchmarks/.../benchmarks/trino/tpcds.yaml).
+Includes the BASELINE config #4 queries Q72 (deep 11-relation join
+tree over catalog_sales x inventory) and Q95 (web_sales self-join CTE
++ IN-subqueries). Date-window parameters are aligned to the
+generator's 1998-2002 sales calendar.
+"""
+
+QUERIES: dict[str, str] = {}
+
+QUERIES["q3"] = """
+select d_year, i_brand_id brand_id, i_brand brand,
+       sum(ss_ext_sales_price) sum_agg
+from date_dim, store_sales, item
+where d_date_sk = ss_sold_date_sk
+  and ss_item_sk = i_item_sk
+  and i_manufact_id = 128
+  and d_moy = 11
+group by d_year, i_brand_id, i_brand
+order by d_year, 4 desc, brand_id
+limit 100
+"""
+
+QUERIES["q7"] = """
+select i_item_id,
+       avg(ss_quantity) agg1,
+       avg(ss_list_price) agg2,
+       avg(ss_coupon_amt) agg3,
+       avg(ss_sales_price) agg4
+from store_sales, customer_demographics, date_dim, item, promotion
+where ss_sold_date_sk = d_date_sk
+  and ss_item_sk = i_item_sk
+  and ss_cdemo_sk = cd_demo_sk
+  and ss_promo_sk = p_promo_sk
+  and cd_gender = 'M'
+  and cd_marital_status = 'S'
+  and cd_education_status = 'College'
+  and (p_channel_email = 'N' or p_channel_event = 'N')
+  and d_year = 2000
+group by i_item_id
+order by i_item_id
+limit 100
+"""
+
+QUERIES["q19"] = """
+select i_brand_id brand_id, i_brand brand, i_manufact_id, i_manufact,
+       sum(ss_ext_sales_price) ext_price
+from date_dim, store_sales, item, customer, customer_address, store
+where d_date_sk = ss_sold_date_sk
+  and ss_item_sk = i_item_sk
+  and i_manager_id = 8
+  and d_moy = 11
+  and d_year = 1998
+  and ss_customer_sk = c_customer_sk
+  and c_current_addr_sk = ca_address_sk
+  and substr(ca_zip, 1, 5) <> substr(s_zip, 1, 5)
+  and ss_store_sk = s_store_sk
+group by i_brand_id, i_brand, i_manufact_id, i_manufact
+order by 5 desc, brand, brand_id, i_manufact_id, i_manufact
+limit 100
+"""
+
+QUERIES["q25"] = """
+select i_item_id, i_item_desc, s_store_id, s_store_name,
+       sum(ss_net_profit) as store_sales_profit,
+       sum(sr_net_loss) as store_returns_loss,
+       sum(cs_net_profit) as catalog_sales_profit
+from store_sales, store_returns, catalog_sales,
+     date_dim d1, date_dim d2, date_dim d3, store, item
+where d1.d_moy = 4
+  and d1.d_year = 2001
+  and d1.d_date_sk = ss_sold_date_sk
+  and i_item_sk = ss_item_sk
+  and s_store_sk = ss_store_sk
+  and ss_customer_sk = sr_customer_sk
+  and ss_item_sk = sr_item_sk
+  and ss_ticket_number = sr_ticket_number
+  and sr_returned_date_sk = d2.d_date_sk
+  and d2.d_moy between 4 and 10
+  and d2.d_year = 2001
+  and sr_customer_sk = cs_bill_customer_sk
+  and sr_item_sk = cs_item_sk
+  and cs_sold_date_sk = d3.d_date_sk
+  and d3.d_moy between 4 and 10
+  and d3.d_year = 2001
+group by i_item_id, i_item_desc, s_store_id, s_store_name
+order by i_item_id, i_item_desc, s_store_id, s_store_name
+limit 100
+"""
+
+QUERIES["q42"] = """
+select dt.d_year, item.i_category_id, item.i_category,
+       sum(ss_ext_sales_price)
+from date_dim dt, store_sales, item
+where dt.d_date_sk = store_sales.ss_sold_date_sk
+  and store_sales.ss_item_sk = item.i_item_sk
+  and item.i_manager_id = 1
+  and dt.d_moy = 11
+  and dt.d_year = 2000
+group by dt.d_year, item.i_category_id, item.i_category
+order by 4 desc, 1, 2, 3
+limit 100
+"""
+
+QUERIES["q52"] = """
+select dt.d_year, item.i_brand_id brand_id, item.i_brand brand,
+       sum(ss_ext_sales_price) ext_price
+from date_dim dt, store_sales, item
+where dt.d_date_sk = store_sales.ss_sold_date_sk
+  and store_sales.ss_item_sk = item.i_item_sk
+  and item.i_manager_id = 1
+  and dt.d_moy = 11
+  and dt.d_year = 2000
+group by dt.d_year, item.i_brand_id, item.i_brand
+order by 1, 4 desc, 2
+limit 100
+"""
+
+QUERIES["q55"] = """
+select i_brand_id brand_id, i_brand brand,
+       sum(ss_ext_sales_price) ext_price
+from date_dim, store_sales, item
+where d_date_sk = ss_sold_date_sk
+  and ss_item_sk = i_item_sk
+  and i_manager_id = 28
+  and d_moy = 11
+  and d_year = 1999
+group by i_brand_id, i_brand
+order by 3 desc, brand_id
+limit 100
+"""
+
+QUERIES["q62"] = """
+select w_warehouse_name, sm_type, web_name,
+  sum(case when (ws_ship_date_sk - ws_sold_date_sk <= 30)
+      then 1 else 0 end) as d30,
+  sum(case when (ws_ship_date_sk - ws_sold_date_sk > 30)
+       and (ws_ship_date_sk - ws_sold_date_sk <= 60)
+      then 1 else 0 end) as d60,
+  sum(case when (ws_ship_date_sk - ws_sold_date_sk > 60)
+       and (ws_ship_date_sk - ws_sold_date_sk <= 90)
+      then 1 else 0 end) as d90,
+  sum(case when (ws_ship_date_sk - ws_sold_date_sk > 90)
+       and (ws_ship_date_sk - ws_sold_date_sk <= 120)
+      then 1 else 0 end) as d120,
+  sum(case when (ws_ship_date_sk - ws_sold_date_sk > 120)
+      then 1 else 0 end) as dmore
+from web_sales, warehouse, ship_mode, web_site, date_dim
+where d_month_seq between 132 and 143
+  and ws_ship_date_sk = d_date_sk
+  and ws_warehouse_sk = w_warehouse_sk
+  and ws_ship_mode_sk = sm_ship_mode_sk
+  and ws_web_site_sk = web_site_sk
+group by w_warehouse_name, sm_type, web_name
+order by 1, 2, 3
+limit 100
+"""
+
+QUERIES["q68"] = """
+select c_last_name, c_first_name, ca_city, bought_city,
+       ss_ticket_number, extended_price, extended_tax, list_price
+from (
+    select ss_ticket_number, ss_customer_sk, ca_city bought_city,
+           sum(ss_ext_sales_price) extended_price,
+           sum(ss_ext_list_price) list_price,
+           sum(ss_ext_tax) extended_tax
+    from store_sales, date_dim, store, household_demographics,
+         customer_address
+    where ss_sold_date_sk = d_date_sk
+      and ss_store_sk = s_store_sk
+      and ss_hdemo_sk = hd_demo_sk
+      and ss_addr_sk = ca_address_sk
+      and d_dom between 1 and 2
+      and (hd_dep_count = 4 or hd_vehicle_count = 3)
+      and d_year in (1999, 2000, 2001)
+      and s_city in ('Fairview', 'Midway')
+    group by ss_ticket_number, ss_customer_sk, ss_addr_sk, ca_city
+) dn, customer, customer_address current_addr
+where ss_customer_sk = c_customer_sk
+  and c_current_addr_sk = current_addr.ca_address_sk
+  and current_addr.ca_city <> bought_city
+order by c_last_name, ss_ticket_number
+limit 100
+"""
+
+QUERIES["q72"] = """
+select i_item_desc, w_warehouse_name, d1.d_week_seq,
+       sum(case when p_promo_sk is null then 1 else 0 end) no_promo,
+       sum(case when p_promo_sk is not null then 1 else 0 end) promo,
+       count(*) total_cnt
+from catalog_sales
+join inventory on cs_item_sk = inv_item_sk
+join warehouse on w_warehouse_sk = inv_warehouse_sk
+join item on i_item_sk = cs_item_sk
+join customer_demographics on cs_bill_cdemo_sk = cd_demo_sk
+join household_demographics on cs_bill_hdemo_sk = hd_demo_sk
+join date_dim d1 on cs_sold_date_sk = d1.d_date_sk
+join date_dim d2 on inv_date_sk = d2.d_date_sk
+join date_dim d3 on cs_ship_date_sk = d3.d_date_sk
+left outer join promotion on cs_promo_sk = p_promo_sk
+left outer join catalog_returns on cr_item_sk = cs_item_sk
+  and cr_order_number = cs_order_number
+where d1.d_week_seq = d2.d_week_seq
+  and inv_quantity_on_hand < cs_quantity
+  and d3.d_date > d1.d_date + 5
+  and hd_buy_potential = '>10000'
+  and d1.d_year = 1999
+  and cd_marital_status = 'D'
+group by i_item_desc, w_warehouse_name, d1.d_week_seq
+order by 6 desc, 1, 2, 3
+limit 100
+"""
+
+QUERIES["q95"] = """
+with ws_wh as (
+    select ws1.ws_order_number wh_order_number
+    from web_sales ws1, web_sales ws2
+    where ws1.ws_order_number = ws2.ws_order_number
+      and ws1.ws_warehouse_sk <> ws2.ws_warehouse_sk
+)
+select count(distinct ws_order_number) as order_count,
+       sum(ws_ext_ship_cost) as total_shipping_cost,
+       sum(ws_net_profit) as total_net_profit
+from web_sales, date_dim, customer_address, web_site
+where d_date between date '1999-02-01' and date '1999-04-02'
+  and ws_ship_date_sk = d_date_sk
+  and ws_ship_addr_sk = ca_address_sk
+  and ca_state = 'IL'
+  and ws_web_site_sk = web_site_sk
+  and web_company_name = 'pri'
+  and ws_order_number in (select wh_order_number from ws_wh)
+  and ws_order_number in (
+      select wr_order_number from web_returns, ws_wh
+      where wr_order_number = wh_order_number
+  )
+"""
+
+QUERIES["q96"] = """
+select count(*)
+from store_sales, household_demographics, time_dim, store
+where ss_sold_time_sk = t_time_sk
+  and ss_hdemo_sk = hd_demo_sk
+  and ss_store_sk = s_store_sk
+  and t_hour = 20
+  and t_minute >= 30
+  and hd_dep_count = 7
+  and s_store_name = 'ese'
+"""
+
+QUERIES["q98"] = """
+select i_item_id, i_item_desc, i_category, i_class, i_current_price,
+       sum(ss_ext_sales_price) as itemrevenue,
+       sum(ss_ext_sales_price) * 100 / sum(sum(ss_ext_sales_price))
+           over (partition by i_class) as revenueratio
+from store_sales, item, date_dim
+where ss_item_sk = i_item_sk
+  and i_category in ('Sports', 'Books', 'Home')
+  and ss_sold_date_sk = d_date_sk
+  and d_date between date '1999-02-22' and date '1999-03-24'
+group by i_item_id, i_item_desc, i_category, i_class, i_current_price
+order by i_category, i_class, i_item_id, i_item_desc, 7
+limit 100
+"""
+
+QUERIES["q37"] = """
+select i_item_id, i_item_desc, i_current_price
+from item, inventory, date_dim, catalog_sales
+where i_current_price between 10 and 150
+  and inv_item_sk = i_item_sk
+  and d_date_sk = inv_date_sk
+  and d_date between date '2000-02-01' and date '2000-04-01'
+  and i_manufact_id in (810, 872, 215, 901)
+  and inv_quantity_on_hand between 100 and 500
+  and cs_item_sk = i_item_sk
+group by i_item_id, i_item_desc, i_current_price
+order by i_item_id
+limit 100
+"""
+
+QUERIES["q82"] = """
+select i_item_id, i_item_desc, i_current_price
+from item, inventory, date_dim, store_sales
+where i_current_price between 10 and 150
+  and inv_item_sk = i_item_sk
+  and d_date_sk = inv_date_sk
+  and d_date between date '2000-05-25' and date '2000-07-24'
+  and i_manufact_id in (990, 465, 354, 497)
+  and inv_quantity_on_hand between 100 and 500
+  and ss_item_sk = i_item_sk
+group by i_item_id, i_item_desc, i_current_price
+order by i_item_id
+limit 100
+"""
+
+QUERIES["q99"] = """
+select w_warehouse_name, sm_type, cc_name,
+  sum(case when (cs_ship_date_sk - cs_sold_date_sk <= 30)
+      then 1 else 0 end) as d30,
+  sum(case when (cs_ship_date_sk - cs_sold_date_sk > 30)
+       and (cs_ship_date_sk - cs_sold_date_sk <= 60)
+      then 1 else 0 end) as d60,
+  sum(case when (cs_ship_date_sk - cs_sold_date_sk > 60)
+       and (cs_ship_date_sk - cs_sold_date_sk <= 90)
+      then 1 else 0 end) as d90,
+  sum(case when (cs_ship_date_sk - cs_sold_date_sk > 90)
+       and (cs_ship_date_sk - cs_sold_date_sk <= 120)
+      then 1 else 0 end) as d120,
+  sum(case when (cs_ship_date_sk - cs_sold_date_sk > 120)
+      then 1 else 0 end) as dmore
+from catalog_sales, warehouse, ship_mode, call_center, date_dim
+where d_month_seq between 132 and 143
+  and cs_ship_date_sk = d_date_sk
+  and cs_warehouse_sk = w_warehouse_sk
+  and cs_ship_mode_sk = sm_ship_mode_sk
+  and cs_call_center_sk = cc_call_center_sk
+group by w_warehouse_name, sm_type, cc_name
+order by 1, 2, 3
+limit 100
+"""
+
+
+# ---- round-4 additions: rollup family + broad coverage (restated spec
+# queries, parameters aligned to the generator calendar/domains) ----
+QUERIES["q12"] = """
+select i_item_id, i_item_desc, i_category, i_class, i_current_price,
+       sum(ws_ext_sales_price) itemrevenue,
+       sum(ws_ext_sales_price) * 100 / sum(sum(ws_ext_sales_price))
+           over (partition by i_class) revenueratio
+from web_sales, item, date_dim
+where ws_item_sk = i_item_sk
+  and i_category in ('Sports', 'Books', 'Home')
+  and ws_sold_date_sk = d_date_sk
+  and d_date between date '1999-02-22' and date '1999-02-22' + interval '30' day
+group by i_item_id, i_item_desc, i_category, i_class, i_current_price
+order by i_category, i_class, i_item_id, i_item_desc, revenueratio
+limit 100
+"""
+QUERIES["q15"] = """
+select ca_zip, sum(cs_sales_price)
+from catalog_sales, customer, customer_address, date_dim
+where cs_bill_customer_sk = c_customer_sk
+  and c_current_addr_sk = ca_address_sk
+  and (substr(ca_zip, 1, 5) in ('85669','86197','88274','83405','86475',
+                                '85392','85460','80348','81792')
+       or ca_state in ('CA','WA','GA')
+       or cs_sales_price > 500)
+  and cs_sold_date_sk = d_date_sk
+  and d_qoy = 2 and d_year = 2001
+group by ca_zip
+order by ca_zip
+limit 100
+"""
+QUERIES["q18"] = """
+select i_item_id, ca_country, ca_state, ca_county,
+       avg(cast(cs_quantity as double)) agg1,
+       avg(cast(cs_list_price as double)) agg2,
+       avg(cast(cs_coupon_amt as double)) agg3,
+       avg(cast(cs_sales_price as double)) agg4,
+       avg(cast(cs_net_profit as double)) agg5,
+       avg(cast(c_birth_year as double)) agg6,
+       avg(cast(cd1.cd_dep_count as double)) agg7
+from catalog_sales, customer_demographics cd1,
+     customer_demographics cd2, customer, customer_address, date_dim, item
+where cs_sold_date_sk = d_date_sk
+  and cs_item_sk = i_item_sk
+  and cs_bill_cdemo_sk = cd1.cd_demo_sk
+  and cs_bill_customer_sk = c_customer_sk
+  and cd1.cd_gender = 'F'
+  and cd1.cd_education_status = 'Unknown'
+  and c_current_cdemo_sk = cd2.cd_demo_sk
+  and c_current_addr_sk = ca_address_sk
+  and c_birth_month in (1, 6, 8, 9, 12, 2)
+  and d_year = 1998
+  and ca_state in ('MS', 'IN', 'ND', 'OK', 'NM', 'VA')
+group by rollup(i_item_id, ca_country, ca_state, ca_county)
+order by ca_country, ca_state, ca_county, i_item_id
+limit 100
+"""
+QUERIES["q20"] = """
+select i_item_id, i_item_desc, i_category, i_class, i_current_price,
+       sum(cs_ext_sales_price) itemrevenue,
+       sum(cs_ext_sales_price) * 100 / sum(sum(cs_ext_sales_price))
+           over (partition by i_class) revenueratio
+from catalog_sales, item, date_dim
+where cs_item_sk = i_item_sk
+  and i_category in ('Sports', 'Books', 'Home')
+  and cs_sold_date_sk = d_date_sk
+  and d_date between date '1999-02-22' and date '1999-02-22' + interval '30' day
+group by i_item_id, i_item_desc, i_category, i_class, i_current_price
+order by i_category, i_class, i_item_id, i_item_desc, revenueratio
+limit 100
+"""
+QUERIES["q22"] = """
+select i_product_name, i_brand, i_class, i_category,
+       avg(inv_quantity_on_hand) qoh
+from inventory, date_dim, item
+where inv_date_sk = d_date_sk
+  and inv_item_sk = i_item_sk
+  and d_month_seq between 108 and 119
+group by rollup(i_product_name, i_brand, i_class, i_category)
+order by qoh, i_product_name, i_brand, i_class, i_category
+limit 100
+"""
+QUERIES["q26"] = """
+select i_item_id, avg(cs_quantity) agg1, avg(cs_list_price) agg2,
+       avg(cs_coupon_amt) agg3, avg(cs_sales_price) agg4
+from catalog_sales, customer_demographics, date_dim, item, promotion
+where cs_sold_date_sk = d_date_sk
+  and cs_item_sk = i_item_sk
+  and cs_bill_cdemo_sk = cd_demo_sk
+  and cs_promo_sk = p_promo_sk
+  and cd_gender = 'M' and cd_marital_status = 'S'
+  and cd_education_status = 'College'
+  and (p_channel_email = 'N' or p_channel_event = 'N')
+  and d_year = 2000
+group by i_item_id
+order by i_item_id
+limit 100
+"""
+QUERIES["q27"] = """
+select i_item_id, s_state, grouping(s_state) g_state,
+       avg(ss_quantity) agg1, avg(ss_list_price) agg2,
+       avg(ss_coupon_amt) agg3, avg(ss_sales_price) agg4
+from store_sales, customer_demographics, date_dim, store, item
+where ss_sold_date_sk = d_date_sk
+  and ss_item_sk = i_item_sk
+  and ss_store_sk = s_store_sk
+  and ss_cdemo_sk = cd_demo_sk
+  and cd_gender = 'M' and cd_marital_status = 'S'
+  and cd_education_status = 'College'
+  and d_year = 2002
+  and s_state in ('TN', 'TX', 'NE', 'MS')
+group by rollup(i_item_id, s_state)
+order by i_item_id, s_state
+limit 100
+"""
+QUERIES["q34"] = """
+select c_last_name, c_first_name, c_salutation, c_preferred_cust_flag,
+       ss_ticket_number, cnt
+from (select ss_ticket_number, ss_customer_sk, count(*) cnt
+      from store_sales, date_dim, store, household_demographics
+      where store_sales.ss_sold_date_sk = date_dim.d_date_sk
+        and store_sales.ss_store_sk = store.s_store_sk
+        and store_sales.ss_hdemo_sk = household_demographics.hd_demo_sk
+        and (date_dim.d_dom between 1 and 3 or date_dim.d_dom between 25 and 28)
+        and (household_demographics.hd_buy_potential = '>10000'
+             or household_demographics.hd_buy_potential = 'Unknown')
+        and household_demographics.hd_vehicle_count > 0
+        and (case when household_demographics.hd_vehicle_count > 0
+             then cast(household_demographics.hd_dep_count as double)
+                  / household_demographics.hd_vehicle_count
+             else null end) > 1.2
+        and date_dim.d_year in (1999, 2000, 2001)
+        and store.s_county in ('Williamson County', 'Barrow County')
+      group by ss_ticket_number, ss_customer_sk) dn, customer
+where ss_customer_sk = c_customer_sk
+  and cnt between 2 and 20
+order by c_last_name, c_first_name, c_salutation,
+         c_preferred_cust_flag desc, ss_ticket_number
+"""
+QUERIES["q36"] = """
+select sum(ss_net_profit) / sum(ss_ext_sales_price) gross_margin,
+       i_category, i_class,
+       grouping(i_category) + grouping(i_class) lochierarchy,
+       rank() over (partition by grouping(i_category) + grouping(i_class),
+                    case when grouping(i_class) = 0 then i_category end
+                    order by sum(ss_net_profit) / sum(ss_ext_sales_price))
+           rank_within_parent
+from store_sales, date_dim d1, item, store
+where d1.d_year = 2001
+  and d1.d_date_sk = ss_sold_date_sk
+  and i_item_sk = ss_item_sk
+  and s_store_sk = ss_store_sk
+  and s_state in ('TN', 'TX', 'NE', 'MS')
+group by rollup(i_category, i_class)
+order by lochierarchy desc,
+         case when lochierarchy = 0 then i_category end,
+         rank_within_parent, i_category, i_class
+limit 100
+"""
+QUERIES["q43"] = """
+select s_store_name, s_store_id,
+       sum(case when d_day_name = 'Sunday' then ss_sales_price else null end) sun_sales,
+       sum(case when d_day_name = 'Monday' then ss_sales_price else null end) mon_sales,
+       sum(case when d_day_name = 'Tuesday' then ss_sales_price else null end) tue_sales,
+       sum(case when d_day_name = 'Wednesday' then ss_sales_price else null end) wed_sales,
+       sum(case when d_day_name = 'Thursday' then ss_sales_price else null end) thu_sales,
+       sum(case when d_day_name = 'Friday' then ss_sales_price else null end) fri_sales,
+       sum(case when d_day_name = 'Saturday' then ss_sales_price else null end) sat_sales
+from date_dim, store_sales, store
+where d_date_sk = ss_sold_date_sk
+  and s_store_sk = ss_store_sk
+  and s_gmt_offset > 0
+  and d_year = 2000
+group by s_store_name, s_store_id
+order by s_store_name, s_store_id, sun_sales, mon_sales, tue_sales,
+         wed_sales, thu_sales, fri_sales, sat_sales
+limit 100
+"""
+QUERIES["q46"] = """
+select c_last_name, c_first_name, ca_city, bought_city, ss_ticket_number,
+       amt, profit
+from (select ss_ticket_number, ss_customer_sk, ca_city bought_city,
+             sum(ss_coupon_amt) amt, sum(ss_net_profit) profit
+      from store_sales, date_dim, store, household_demographics,
+           customer_address
+      where store_sales.ss_sold_date_sk = date_dim.d_date_sk
+        and store_sales.ss_store_sk = store.s_store_sk
+        and store_sales.ss_hdemo_sk = household_demographics.hd_demo_sk
+        and store_sales.ss_addr_sk = customer_address.ca_address_sk
+        and (household_demographics.hd_dep_count = 4
+             or household_demographics.hd_vehicle_count = 3)
+        and date_dim.d_dow in (6, 0)
+        and date_dim.d_year in (1999, 2000, 2001)
+        and store.s_city in ('Georgetown', 'Greenville', 'Union')
+      group by ss_ticket_number, ss_customer_sk, ss_addr_sk, ca_city) dn,
+     customer, customer_address current_addr
+where ss_customer_sk = c_customer_sk
+  and customer.c_current_addr_sk = current_addr.ca_address_sk
+  and current_addr.ca_city <> bought_city
+order by c_last_name, c_first_name, ca_city, bought_city, ss_ticket_number
+limit 100
+"""
+QUERIES["q53"] = """
+select * from (
+  select i_manufact_id, sum(ss_sales_price) sum_sales,
+         avg(sum(ss_sales_price)) over (partition by i_manufact_id)
+             avg_quarterly_sales
+  from item, store_sales, date_dim, store
+  where ss_item_sk = i_item_sk
+    and ss_sold_date_sk = d_date_sk
+    and ss_store_sk = s_store_sk
+    and d_month_seq between 108 and 119
+    and ((i_category in ('Books', 'Children', 'Electronics')
+          and i_class in ('fiction', 'kids', 'computers'))
+         or (i_category in ('Women', 'Music', 'Men')
+             and i_class in ('accessories', 'classical', 'pants')))
+  group by i_manufact_id, d_qoy) tmp1
+where case when avg_quarterly_sales > 0
+      then abs(sum_sales - avg_quarterly_sales) / avg_quarterly_sales
+      else null end > 0.1
+order by avg_quarterly_sales, sum_sales, i_manufact_id
+limit 100
+"""
+QUERIES["q63"] = """
+select * from (
+  select i_manager_id, sum(ss_sales_price) sum_sales,
+         avg(sum(ss_sales_price)) over (partition by i_manager_id)
+             avg_monthly_sales
+  from item, store_sales, date_dim, store
+  where ss_item_sk = i_item_sk
+    and ss_sold_date_sk = d_date_sk
+    and ss_store_sk = s_store_sk
+    and d_month_seq between 108 and 119
+    and ((i_category in ('Books', 'Children', 'Electronics')
+          and i_class in ('fiction', 'kids', 'computers'))
+         or (i_category in ('Women', 'Music', 'Men')
+             and i_class in ('accessories', 'classical', 'pants')))
+  group by i_manager_id, d_moy) tmp1
+where case when avg_monthly_sales > 0
+      then abs(sum_sales - avg_monthly_sales) / avg_monthly_sales
+      else null end > 0.1
+order by i_manager_id, avg_monthly_sales, sum_sales
+limit 100
+"""
+QUERIES["q65"] = """
+select s_store_name, i_item_desc, sc.revenue, i_current_price,
+       i_wholesale_cost, i_brand
+from store, item,
+     (select ss_store_sk, avg(revenue) ave
+      from (select ss_store_sk, ss_item_sk, sum(ss_sales_price) revenue
+            from store_sales, date_dim
+            where ss_sold_date_sk = d_date_sk
+              and d_month_seq between 108 and 119
+            group by ss_store_sk, ss_item_sk) sa
+      group by ss_store_sk) sb,
+     (select ss_store_sk, ss_item_sk, sum(ss_sales_price) revenue
+      from store_sales, date_dim
+      where ss_sold_date_sk = d_date_sk
+        and d_month_seq between 108 and 119
+      group by ss_store_sk, ss_item_sk) sc
+where sb.ss_store_sk = sc.ss_store_sk
+  and sc.revenue <= 0.1 * sb.ave
+  and s_store_sk = sc.ss_store_sk
+  and i_item_sk = sc.ss_item_sk
+order by s_store_name, i_item_desc, i_brand, sc.revenue
+limit 100
+"""
+QUERIES["q73"] = """
+select c_last_name, c_first_name, c_salutation, c_preferred_cust_flag,
+       ss_ticket_number, cnt
+from (select ss_ticket_number, ss_customer_sk, count(*) cnt
+      from store_sales, date_dim, store, household_demographics
+      where store_sales.ss_sold_date_sk = date_dim.d_date_sk
+        and store_sales.ss_store_sk = store.s_store_sk
+        and store_sales.ss_hdemo_sk = household_demographics.hd_demo_sk
+        and date_dim.d_dom between 1 and 2
+        and (household_demographics.hd_buy_potential = '>10000'
+             or household_demographics.hd_buy_potential = 'Unknown')
+        and household_demographics.hd_vehicle_count > 0
+        and (case when household_demographics.hd_vehicle_count > 0
+             then cast(household_demographics.hd_dep_count as double)
+                  / household_demographics.hd_vehicle_count
+             else null end) > 1
+        and date_dim.d_year in (1999, 2000, 2001)
+        and store.s_county in ('Williamson County', 'Furnas County')
+      group by ss_ticket_number, ss_customer_sk) dj, customer
+where ss_customer_sk = c_customer_sk
+  and cnt between 1 and 5
+order by cnt desc, c_last_name, ss_ticket_number
+"""
+QUERIES["q79"] = """
+select c_last_name, c_first_name, substr(s_city, 1, 30), ss_ticket_number,
+       amt, profit
+from (select ss_ticket_number, ss_customer_sk, store.s_city,
+             sum(ss_coupon_amt) amt, sum(ss_net_profit) profit
+      from store_sales, date_dim, store, household_demographics
+      where store_sales.ss_sold_date_sk = date_dim.d_date_sk
+        and store_sales.ss_store_sk = store.s_store_sk
+        and store_sales.ss_hdemo_sk = household_demographics.hd_demo_sk
+        and (household_demographics.hd_dep_count = 6
+             or household_demographics.hd_vehicle_count > 2)
+        and date_dim.d_dow = 1
+        and date_dim.d_year in (1999, 2000, 2001)
+        and store.s_number_employees between 40 and 400
+      group by ss_ticket_number, ss_customer_sk, ss_addr_sk, store.s_city) ms,
+     customer
+where ss_customer_sk = c_customer_sk
+order by c_last_name, c_first_name, substr(s_city, 1, 30), profit
+limit 100
+"""
+QUERIES["q86"] = """
+select sum(ws_net_paid) total_sum, i_category, i_class,
+       grouping(i_category) + grouping(i_class) lochierarchy,
+       rank() over (partition by grouping(i_category) + grouping(i_class),
+                    case when grouping(i_class) = 0 then i_category end
+                    order by sum(ws_net_paid) desc) rank_within_parent
+from web_sales, date_dim d1, item
+where d1.d_month_seq between 108 and 119
+  and d1.d_date_sk = ws_sold_date_sk
+  and i_item_sk = ws_item_sk
+group by rollup(i_category, i_class)
+order by lochierarchy desc,
+         case when lochierarchy = 0 then i_category end,
+         rank_within_parent, i_category, i_class
+limit 100
+"""
+QUERIES["q88"] = """
+select * from
+ (select count(*) h8_30_to_9 from store_sales, household_demographics,
+         time_dim, store
+  where ss_sold_time_sk = time_dim.t_time_sk
+    and ss_hdemo_sk = household_demographics.hd_demo_sk
+    and ss_store_sk = s_store_sk
+    and time_dim.t_hour = 8 and time_dim.t_minute >= 30
+    and ((household_demographics.hd_dep_count = 4
+          and household_demographics.hd_vehicle_count <= 6)
+         or (household_demographics.hd_dep_count = 2
+             and household_demographics.hd_vehicle_count <= 4)
+         or (household_demographics.hd_dep_count = 0
+             and household_demographics.hd_vehicle_count <= 2))
+    and store.s_store_name = 'ese') s1,
+ (select count(*) h9_to_9_30 from store_sales, household_demographics,
+         time_dim, store
+  where ss_sold_time_sk = time_dim.t_time_sk
+    and ss_hdemo_sk = household_demographics.hd_demo_sk
+    and ss_store_sk = s_store_sk
+    and time_dim.t_hour = 9 and time_dim.t_minute < 30
+    and ((household_demographics.hd_dep_count = 4
+          and household_demographics.hd_vehicle_count <= 6)
+         or (household_demographics.hd_dep_count = 2
+             and household_demographics.hd_vehicle_count <= 4)
+         or (household_demographics.hd_dep_count = 0
+             and household_demographics.hd_vehicle_count <= 2))
+    and store.s_store_name = 'ese') s2,
+ (select count(*) h9_30_to_10 from store_sales, household_demographics,
+         time_dim, store
+  where ss_sold_time_sk = time_dim.t_time_sk
+    and ss_hdemo_sk = household_demographics.hd_demo_sk
+    and ss_store_sk = s_store_sk
+    and time_dim.t_hour = 9 and time_dim.t_minute >= 30
+    and ((household_demographics.hd_dep_count = 4
+          and household_demographics.hd_vehicle_count <= 6)
+         or (household_demographics.hd_dep_count = 2
+             and household_demographics.hd_vehicle_count <= 4)
+         or (household_demographics.hd_dep_count = 0
+             and household_demographics.hd_vehicle_count <= 2))
+    and store.s_store_name = 'ese') s3,
+ (select count(*) h10_to_10_30 from store_sales, household_demographics,
+         time_dim, store
+  where ss_sold_time_sk = time_dim.t_time_sk
+    and ss_hdemo_sk = household_demographics.hd_demo_sk
+    and ss_store_sk = s_store_sk
+    and time_dim.t_hour = 10 and time_dim.t_minute < 30
+    and ((household_demographics.hd_dep_count = 4
+          and household_demographics.hd_vehicle_count <= 6)
+         or (household_demographics.hd_dep_count = 2
+             and household_demographics.hd_vehicle_count <= 4)
+         or (household_demographics.hd_dep_count = 0
+             and household_demographics.hd_vehicle_count <= 2))
+    and store.s_store_name = 'ese') s4
+"""
+QUERIES["q89"] = """
+select * from (
+  select i_category, i_class, i_brand, s_store_name, s_company_name,
+         d_moy, sum(ss_sales_price) sum_sales,
+         avg(cast(sum(ss_sales_price) as double)) over (partition by
+             i_category, i_brand, s_store_name, s_company_name)
+             avg_monthly_sales
+  from item, store_sales, date_dim, store
+  where ss_item_sk = i_item_sk
+    and ss_sold_date_sk = d_date_sk
+    and ss_store_sk = s_store_sk
+    and d_year in (1999)
+    and ((i_category in ('Books', 'Electronics', 'Sports')
+          and i_class in ('computers', 'shirts', 'baseball'))
+         or (i_category in ('Men', 'Jewelry', 'Women')
+             and i_class in ('accessories', 'dresses', 'pants')))
+  group by i_category, i_class, i_brand, s_store_name, s_company_name,
+           d_moy) tmp1
+where case when avg_monthly_sales <> 0
+      then abs(sum_sales - avg_monthly_sales) / avg_monthly_sales
+      else null end > 0.1
+order by sum_sales - avg_monthly_sales, s_store_name, i_category,
+         i_class, i_brand, d_moy
+limit 100
+"""
+QUERIES["q93"] = """
+select ss_customer_sk, sum(act_sales) sumsales
+from (select ss_item_sk, ss_ticket_number, ss_customer_sk,
+             case when sr_return_quantity is not null
+                  then (ss_quantity - sr_return_quantity) * ss_sales_price
+                  else ss_quantity * ss_sales_price end act_sales
+      from store_sales left join store_returns
+           on sr_item_sk = ss_item_sk and sr_ticket_number = ss_ticket_number,
+           reason
+      where sr_reason_sk = r_reason_sk
+        and r_reason_desc = 'Package was damaged') t
+group by ss_customer_sk
+order by sumsales, ss_customer_sk
+limit 100
+"""
+QUERIES["q97"] = """
+with ssci as (
+  select ss_customer_sk customer_sk, ss_item_sk item_sk
+  from store_sales, date_dim
+  where ss_sold_date_sk = d_date_sk
+    and d_month_seq between 108 and 119
+  group by ss_customer_sk, ss_item_sk),
+csci as (
+  select cs_bill_customer_sk customer_sk, cs_item_sk item_sk
+  from catalog_sales, date_dim
+  where cs_sold_date_sk = d_date_sk
+    and d_month_seq between 108 and 119
+  group by cs_bill_customer_sk, cs_item_sk)
+select sum(case when ssci.customer_sk is not null
+                 and csci.customer_sk is null then 1 else 0 end) store_only,
+       sum(case when ssci.customer_sk is null
+                 and csci.customer_sk is not null then 1 else 0 end) catalog_only,
+       sum(case when ssci.customer_sk is not null
+                 and csci.customer_sk is not null then 1 else 0 end) store_and_catalog
+from ssci full outer join csci
+     on ssci.customer_sk = csci.customer_sk and ssci.item_sk = csci.item_sk
+limit 100
+"""
+
+#: sqlite-oracle equivalents for queries sqlite cannot run
+#: directly (ROLLUP/GROUPING spelled as explicit UNION ALLs;
+#: ordering adds NULLS LAST to match engine null ordering)
+SQLITE_ORACLE: dict[str, str] = {}
+SQLITE_ORACLE["q18"] = """
+select i_item_id, ca_country, ca_state, ca_county, avg(1.0*cs_quantity),
+       avg(1.0*cs_list_price), avg(1.0*cs_coupon_amt),
+       avg(1.0*cs_sales_price), avg(1.0*cs_net_profit),
+       avg(1.0*c_birth_year), avg(1.0*cd_dep_count)
+from (select cs_quantity, cs_list_price, cs_coupon_amt, cs_sales_price,
+             cs_net_profit, c_birth_year, cd1.cd_dep_count, i_item_id,
+             ca_country, ca_state, ca_county
+      from catalog_sales, customer_demographics cd1,
+           customer_demographics cd2, customer, customer_address,
+           date_dim, item
+      where cs_sold_date_sk = d_date_sk
+        and cs_item_sk = i_item_sk
+        and cs_bill_cdemo_sk = cd1.cd_demo_sk
+        and cs_bill_customer_sk = c_customer_sk
+        and cd1.cd_gender = 'F'
+        and cd1.cd_education_status = 'Unknown'
+        and c_current_cdemo_sk = cd2.cd_demo_sk
+        and c_current_addr_sk = ca_address_sk
+        and c_birth_month in (1, 6, 8, 9, 12, 2)
+        and d_year = 1998
+        and ca_state in ('MS', 'IN', 'ND', 'OK', 'NM', 'VA'))
+group by i_item_id, ca_country, ca_state, ca_county
+union all
+select i_item_id, ca_country, ca_state, null, avg(1.0*cs_quantity),
+       avg(1.0*cs_list_price), avg(1.0*cs_coupon_amt),
+       avg(1.0*cs_sales_price), avg(1.0*cs_net_profit),
+       avg(1.0*c_birth_year), avg(1.0*cd_dep_count)
+from (select cs_quantity, cs_list_price, cs_coupon_amt, cs_sales_price,
+             cs_net_profit, c_birth_year, cd1.cd_dep_count, i_item_id,
+             ca_country, ca_state
+      from catalog_sales, customer_demographics cd1,
+           customer_demographics cd2, customer, customer_address,
+           date_dim, item
+      where cs_sold_date_sk = d_date_sk
+        and cs_item_sk = i_item_sk
+        and cs_bill_cdemo_sk = cd1.cd_demo_sk
+        and cs_bill_customer_sk = c_customer_sk
+        and cd1.cd_gender = 'F'
+        and cd1.cd_education_status = 'Unknown'
+        and c_current_cdemo_sk = cd2.cd_demo_sk
+        and c_current_addr_sk = ca_address_sk
+        and c_birth_month in (1, 6, 8, 9, 12, 2)
+        and d_year = 1998
+        and ca_state in ('MS', 'IN', 'ND', 'OK', 'NM', 'VA'))
+group by i_item_id, ca_country, ca_state
+union all
+select i_item_id, ca_country, null, null, avg(1.0*cs_quantity),
+       avg(1.0*cs_list_price), avg(1.0*cs_coupon_amt),
+       avg(1.0*cs_sales_price), avg(1.0*cs_net_profit),
+       avg(1.0*c_birth_year), avg(1.0*cd_dep_count)
+from (select cs_quantity, cs_list_price, cs_coupon_amt, cs_sales_price,
+             cs_net_profit, c_birth_year, cd1.cd_dep_count, i_item_id,
+             ca_country
+      from catalog_sales, customer_demographics cd1,
+           customer_demographics cd2, customer, customer_address,
+           date_dim, item
+      where cs_sold_date_sk = d_date_sk
+        and cs_item_sk = i_item_sk
+        and cs_bill_cdemo_sk = cd1.cd_demo_sk
+        and cs_bill_customer_sk = c_customer_sk
+        and cd1.cd_gender = 'F'
+        and cd1.cd_education_status = 'Unknown'
+        and c_current_cdemo_sk = cd2.cd_demo_sk
+        and c_current_addr_sk = ca_address_sk
+        and c_birth_month in (1, 6, 8, 9, 12, 2)
+        and d_year = 1998
+        and ca_state in ('MS', 'IN', 'ND', 'OK', 'NM', 'VA'))
+group by i_item_id, ca_country
+union all
+select i_item_id, null, null, null, avg(1.0*cs_quantity),
+       avg(1.0*cs_list_price), avg(1.0*cs_coupon_amt),
+       avg(1.0*cs_sales_price), avg(1.0*cs_net_profit),
+       avg(1.0*c_birth_year), avg(1.0*cd_dep_count)
+from (select cs_quantity, cs_list_price, cs_coupon_amt, cs_sales_price,
+             cs_net_profit, c_birth_year, cd1.cd_dep_count, i_item_id
+      from catalog_sales, customer_demographics cd1,
+           customer_demographics cd2, customer, customer_address,
+           date_dim, item
+      where cs_sold_date_sk = d_date_sk
+        and cs_item_sk = i_item_sk
+        and cs_bill_cdemo_sk = cd1.cd_demo_sk
+        and cs_bill_customer_sk = c_customer_sk
+        and cd1.cd_gender = 'F'
+        and cd1.cd_education_status = 'Unknown'
+        and c_current_cdemo_sk = cd2.cd_demo_sk
+        and c_current_addr_sk = ca_address_sk
+        and c_birth_month in (1, 6, 8, 9, 12, 2)
+        and d_year = 1998
+        and ca_state in ('MS', 'IN', 'ND', 'OK', 'NM', 'VA'))
+group by i_item_id
+union all
+select null, null, null, null, avg(1.0*cs_quantity),
+       avg(1.0*cs_list_price), avg(1.0*cs_coupon_amt),
+       avg(1.0*cs_sales_price), avg(1.0*cs_net_profit),
+       avg(1.0*c_birth_year), avg(1.0*cd_dep_count)
+from (select cs_quantity, cs_list_price, cs_coupon_amt, cs_sales_price,
+             cs_net_profit, c_birth_year, cd1.cd_dep_count
+      from catalog_sales, customer_demographics cd1,
+           customer_demographics cd2, customer, customer_address,
+           date_dim, item
+      where cs_sold_date_sk = d_date_sk
+        and cs_item_sk = i_item_sk
+        and cs_bill_cdemo_sk = cd1.cd_demo_sk
+        and cs_bill_customer_sk = c_customer_sk
+        and cd1.cd_gender = 'F'
+        and cd1.cd_education_status = 'Unknown'
+        and c_current_cdemo_sk = cd2.cd_demo_sk
+        and c_current_addr_sk = ca_address_sk
+        and c_birth_month in (1, 6, 8, 9, 12, 2)
+        and d_year = 1998
+        and ca_state in ('MS', 'IN', 'ND', 'OK', 'NM', 'VA'))
+order by 2, 3, 4, 1
+limit 100
+"""
+SQLITE_ORACLE["q22"] = """
+select i_product_name, i_brand, i_class, i_category,
+       avg(1.0*inv_quantity_on_hand) qoh
+from inventory, date_dim, item
+where inv_date_sk = d_date_sk and inv_item_sk = i_item_sk
+  and d_month_seq between 108 and 119
+group by i_product_name, i_brand, i_class, i_category
+union all
+select i_product_name, i_brand, i_class, null, avg(1.0*inv_quantity_on_hand)
+from inventory, date_dim, item
+where inv_date_sk = d_date_sk and inv_item_sk = i_item_sk
+  and d_month_seq between 108 and 119
+group by i_product_name, i_brand, i_class
+union all
+select i_product_name, i_brand, null, null, avg(1.0*inv_quantity_on_hand)
+from inventory, date_dim, item
+where inv_date_sk = d_date_sk and inv_item_sk = i_item_sk
+  and d_month_seq between 108 and 119
+group by i_product_name, i_brand
+union all
+select i_product_name, null, null, null, avg(1.0*inv_quantity_on_hand)
+from inventory, date_dim, item
+where inv_date_sk = d_date_sk and inv_item_sk = i_item_sk
+  and d_month_seq between 108 and 119
+group by i_product_name
+union all
+select null, null, null, null, avg(1.0*inv_quantity_on_hand)
+from inventory, date_dim, item
+where inv_date_sk = d_date_sk and inv_item_sk = i_item_sk
+  and d_month_seq between 108 and 119
+order by 5, 1 nulls last, 2 nulls last, 3 nulls last, 4 nulls last
+limit 100
+"""
+SQLITE_ORACLE["q27"] = """
+select i_item_id, s_state, 0, avg(1.0*ss_quantity), avg(1.0*ss_list_price),
+       avg(1.0*ss_coupon_amt), avg(1.0*ss_sales_price)
+from store_sales, customer_demographics, date_dim, store, item
+where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk
+  and ss_store_sk = s_store_sk and ss_cdemo_sk = cd_demo_sk
+  and cd_gender = 'M' and cd_marital_status = 'S'
+  and cd_education_status = 'College' and d_year = 2002
+  and s_state in ('TN', 'TX', 'NE', 'MS')
+group by i_item_id, s_state
+union all
+select i_item_id, null, 1, avg(1.0*ss_quantity), avg(1.0*ss_list_price),
+       avg(1.0*ss_coupon_amt), avg(1.0*ss_sales_price)
+from store_sales, customer_demographics, date_dim, store, item
+where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk
+  and ss_store_sk = s_store_sk and ss_cdemo_sk = cd_demo_sk
+  and cd_gender = 'M' and cd_marital_status = 'S'
+  and cd_education_status = 'College' and d_year = 2002
+  and s_state in ('TN', 'TX', 'NE', 'MS')
+group by i_item_id
+union all
+select null, null, 1, avg(1.0*ss_quantity), avg(1.0*ss_list_price),
+       avg(1.0*ss_coupon_amt), avg(1.0*ss_sales_price)
+from store_sales, customer_demographics, date_dim, store, item
+where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk
+  and ss_store_sk = s_store_sk and ss_cdemo_sk = cd_demo_sk
+  and cd_gender = 'M' and cd_marital_status = 'S'
+  and cd_education_status = 'College' and d_year = 2002
+  and s_state in ('TN', 'TX', 'NE', 'MS')
+order by 1 nulls last, 2 nulls last
+limit 100
+"""
+SQLITE_ORACLE["q36"] = """
+select gross_margin, i_category, i_class, lochierarchy,
+       rank() over (partition by lochierarchy,
+                    case when lochierarchy = 0 then i_category end
+                    order by gross_margin) rank_within_parent
+from (
+  select 1.0*sum(ss_net_profit) / sum(ss_ext_sales_price) gross_margin,
+         i_category, i_class, 0 lochierarchy
+  from store_sales, date_dim d1, item, store
+  where d1.d_year = 2001 and d1.d_date_sk = ss_sold_date_sk
+    and i_item_sk = ss_item_sk and s_store_sk = ss_store_sk
+    and s_state in ('TN', 'TX', 'NE', 'MS')
+  group by i_category, i_class
+  union all
+  select 1.0*sum(ss_net_profit) / sum(ss_ext_sales_price), i_category,
+         null, 1
+  from store_sales, date_dim d1, item, store
+  where d1.d_year = 2001 and d1.d_date_sk = ss_sold_date_sk
+    and i_item_sk = ss_item_sk and s_store_sk = ss_store_sk
+    and s_state in ('TN', 'TX', 'NE', 'MS')
+  group by i_category
+  union all
+  select 1.0*sum(ss_net_profit) / sum(ss_ext_sales_price), null, null, 2
+  from store_sales, date_dim d1, item, store
+  where d1.d_year = 2001 and d1.d_date_sk = ss_sold_date_sk
+    and i_item_sk = ss_item_sk and s_store_sk = ss_store_sk
+    and s_state in ('TN', 'TX', 'NE', 'MS'))
+order by lochierarchy desc,
+         case when lochierarchy = 0 then i_category end,
+         rank_within_parent, i_category, i_class
+limit 100
+"""
+SQLITE_ORACLE["q86"] = """
+select total_sum, i_category, i_class, lochierarchy,
+       rank() over (partition by lochierarchy,
+                    case when lochierarchy = 0 then i_category end
+                    order by total_sum desc) rank_within_parent
+from (
+  select sum(ws_net_paid) total_sum, i_category, i_class, 0 lochierarchy
+  from web_sales, date_dim d1, item
+  where d1.d_month_seq between 108 and 119
+    and d1.d_date_sk = ws_sold_date_sk and i_item_sk = ws_item_sk
+  group by i_category, i_class
+  union all
+  select sum(ws_net_paid), i_category, null, 1
+  from web_sales, date_dim d1, item
+  where d1.d_month_seq between 108 and 119
+    and d1.d_date_sk = ws_sold_date_sk and i_item_sk = ws_item_sk
+  group by i_category
+  union all
+  select sum(ws_net_paid), null, null, 2
+  from web_sales, date_dim d1, item
+  where d1.d_month_seq between 108 and 119
+    and d1.d_date_sk = ws_sold_date_sk and i_item_sk = ws_item_sk)
+order by lochierarchy desc,
+         case when lochierarchy = 0 then i_category end,
+         rank_within_parent, i_category, i_class
+limit 100
+"""
+
+QUERIES["q13"] = """
+select avg(ss_quantity), avg(ss_ext_sales_price),
+       avg(ss_ext_wholesale_cost), sum(ss_ext_wholesale_cost)
+from store_sales, store, customer_demographics,
+     household_demographics, customer_address, date_dim
+where s_store_sk = ss_store_sk
+  and ss_sold_date_sk = d_date_sk
+  and d_year = 2001
+  and ((ss_hdemo_sk = hd_demo_sk
+        and cd_demo_sk = ss_cdemo_sk
+        and cd_marital_status = 'M'
+        and cd_education_status = 'Advanced Degree'
+        and ss_sales_price between 100.00 and 150.00
+        and hd_dep_count = 3)
+       or (ss_hdemo_sk = hd_demo_sk
+           and cd_demo_sk = ss_cdemo_sk
+           and cd_marital_status = 'S'
+           and cd_education_status = 'College'
+           and ss_sales_price between 50.00 and 100.00
+           and hd_dep_count = 1)
+       or (ss_hdemo_sk = hd_demo_sk
+           and cd_demo_sk = ss_cdemo_sk
+           and cd_marital_status = 'W'
+           and cd_education_status = '2 yr Degree'
+           and ss_sales_price between 150.00 and 200.00
+           and hd_dep_count = 1))
+  and ((ss_addr_sk = ca_address_sk
+        and ca_country = 'United States'
+        and ca_state in ('TX', 'OH', 'KS')
+        and ss_net_profit between 100 and 200)
+       or (ss_addr_sk = ca_address_sk
+           and ca_country = 'United States'
+           and ca_state in ('OR', 'NE', 'KY')
+           and ss_net_profit between 150 and 300)
+       or (ss_addr_sk = ca_address_sk
+           and ca_country = 'United States'
+           and ca_state in ('VA', 'TN', 'MS')
+           and ss_net_profit between 50 and 250))
+"""
+
+QUERIES["q48"] = """
+select sum(ss_quantity)
+from store_sales, store, customer_demographics, customer_address,
+     date_dim
+where s_store_sk = ss_store_sk
+  and ss_sold_date_sk = d_date_sk
+  and d_year = 2000
+  and ((cd_demo_sk = ss_cdemo_sk
+        and cd_marital_status = 'M'
+        and cd_education_status = '4 yr Degree'
+        and ss_sales_price between 100.00 and 150.00)
+       or (cd_demo_sk = ss_cdemo_sk
+           and cd_marital_status = 'D'
+           and cd_education_status = '2 yr Degree'
+           and ss_sales_price between 50.00 and 100.00)
+       or (cd_demo_sk = ss_cdemo_sk
+           and cd_marital_status = 'S'
+           and cd_education_status = 'College'
+           and ss_sales_price between 150.00 and 200.00))
+  and ((ss_addr_sk = ca_address_sk
+        and ca_country = 'United States'
+        and ca_state in ('CO', 'OH', 'TX')
+        and ss_net_profit between 0 and 2000)
+       or (ss_addr_sk = ca_address_sk
+           and ca_country = 'United States'
+           and ca_state in ('OR', 'MN', 'KY')
+           and ss_net_profit between 150 and 3000)
+       or (ss_addr_sk = ca_address_sk
+           and ca_country = 'United States'
+           and ca_state in ('VA', 'CA', 'MS')
+           and ss_net_profit between 50 and 25000))
+"""
+
+# q13/q48: sqlite cannot plan the spec's OR-embedded join conditions
+# (it cross-joins and never finishes even at tiny); the oracle text is
+# the factored-equivalent form — the same rewrite the engine's
+# optimizer applies (ExtractCommonPredicates analog)
+SQLITE_ORACLE["q13"] = """
+select avg(ss_quantity), avg(ss_ext_sales_price),
+       avg(ss_ext_wholesale_cost), sum(ss_ext_wholesale_cost)
+from store_sales, store, customer_demographics,
+     household_demographics, customer_address, date_dim
+where s_store_sk = ss_store_sk
+  and ss_sold_date_sk = d_date_sk
+  and d_year = 2001
+  and ss_hdemo_sk = hd_demo_sk
+  and cd_demo_sk = ss_cdemo_sk
+  and ss_addr_sk = ca_address_sk
+  and ca_country = 'United States'
+  and ((cd_marital_status = 'M'
+        and cd_education_status = 'Advanced Degree'
+        and ss_sales_price between 100.00 and 150.00
+        and hd_dep_count = 3)
+       or (cd_marital_status = 'S'
+           and cd_education_status = 'College'
+           and ss_sales_price between 50.00 and 100.00
+           and hd_dep_count = 1)
+       or (cd_marital_status = 'W'
+           and cd_education_status = '2 yr Degree'
+           and ss_sales_price between 150.00 and 200.00
+           and hd_dep_count = 1))
+  and ((ca_state in ('TX', 'OH', 'KS')
+        and ss_net_profit between 100 and 200)
+       or (ca_state in ('OR', 'NE', 'KY')
+           and ss_net_profit between 150 and 300)
+       or (ca_state in ('VA', 'TN', 'MS')
+           and ss_net_profit between 50 and 250))
+"""
+
+SQLITE_ORACLE["q48"] = """
+select sum(ss_quantity)
+from store_sales, store, customer_demographics, customer_address,
+     date_dim
+where s_store_sk = ss_store_sk
+  and ss_sold_date_sk = d_date_sk
+  and d_year = 2000
+  and cd_demo_sk = ss_cdemo_sk
+  and ss_addr_sk = ca_address_sk
+  and ca_country = 'United States'
+  and ((cd_marital_status = 'M'
+        and cd_education_status = '4 yr Degree'
+        and ss_sales_price between 100.00 and 150.00)
+       or (cd_marital_status = 'D'
+           and cd_education_status = '2 yr Degree'
+           and ss_sales_price between 50.00 and 100.00)
+       or (cd_marital_status = 'S'
+           and cd_education_status = 'College'
+           and ss_sales_price between 150.00 and 200.00))
+  and ((ca_state in ('CO', 'OH', 'TX')
+        and ss_net_profit between 0 and 2000)
+       or (ca_state in ('OR', 'MN', 'KY')
+           and ss_net_profit between 150 and 3000)
+       or (ca_state in ('VA', 'CA', 'MS')
+           and ss_net_profit between 50 and 25000))
+"""
+
+
+def _rollup_union(keys, aggs, body):
+    """sqlite oracle helper: spell GROUP BY ROLLUP(keys) as the union
+    of its grouping sets (sqlite has no ROLLUP)."""
+    branches = []
+    for i in range(len(keys), -1, -1):
+        cols = keys[:i] + ["null"] * (len(keys) - i)
+        group = f"group by {', '.join(keys[:i])}" if i else ""
+        branches.append(
+            f"select {', '.join(cols)}, {aggs} {body} {group}"
+        )
+    return " union all ".join(branches)
+
+
+QUERIES["q67"] = """
+select * from (
+  select i_category, i_class, i_brand, i_product_name, d_year, d_qoy,
+         d_moy, s_store_id, sumsales,
+         rank() over (partition by i_category
+                      order by sumsales desc) rk
+  from (select i_category, i_class, i_brand, i_product_name, d_year,
+               d_qoy, d_moy, s_store_id,
+               sum(coalesce(ss_sales_price * ss_quantity, 0)) sumsales
+        from store_sales, date_dim, store, item
+        where ss_sold_date_sk = d_date_sk
+          and ss_item_sk = i_item_sk
+          and ss_store_sk = s_store_sk
+          and d_month_seq between 108 and 119
+        group by rollup(i_category, i_class, i_brand, i_product_name,
+                        d_year, d_qoy, d_moy, s_store_id)) dw1) dw2
+where rk <= 100
+order by i_category, i_class, i_brand, i_product_name, d_year, d_qoy,
+         d_moy, s_store_id, sumsales, rk
+limit 100
+"""
+
+SQLITE_ORACLE["q67"] = (
+    "select * from (select i_category, i_class, i_brand, "
+    "i_product_name, d_year, d_qoy, d_moy, s_store_id, sumsales, "
+    "rank() over (partition by i_category order by sumsales desc) rk "
+    "from ("
+    + _rollup_union(
+        ["i_category", "i_class", "i_brand", "i_product_name",
+         "d_year", "d_qoy", "d_moy", "s_store_id"],
+        "sum(coalesce(ss_sales_price * ss_quantity, 0)) sumsales",
+        "from store_sales, date_dim, store, item "
+        "where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk "
+        "and ss_store_sk = s_store_sk "
+        "and d_month_seq between 108 and 119",
+    )
+    + ") dw1) dw2 where rk <= 100 "
+    "order by i_category nulls last, i_class nulls last, "
+    "i_brand nulls last, i_product_name nulls last, "
+    "d_year nulls last, d_qoy nulls last, d_moy nulls last, "
+    "s_store_id nulls last, sumsales, rk limit 100"
+)
+
+_Q80_CHANNELS = """
+   select 'store channel' channel, 'store' || store_id id, sales,
+          returns, profit
+   from (select s_store_id store_id, sum(ss_ext_sales_price) sales,
+                sum(coalesce(sr_return_amt, 0)) returns,
+                sum(ss_net_profit - coalesce(sr_net_loss, 0)) profit
+         from store_sales left join store_returns
+              on ss_item_sk = sr_item_sk
+              and ss_ticket_number = sr_ticket_number,
+              date_dim, store, item, promotion
+         where ss_sold_date_sk = d_date_sk
+           and d_date between date '2000-08-23'
+               and date '2000-08-23' + interval '30' day
+           and ss_store_sk = s_store_sk
+           and ss_item_sk = i_item_sk
+           and i_current_price > 50
+           and ss_promo_sk = p_promo_sk
+           and p_channel_tv = 'N'
+         group by s_store_id) ssr
+   union all
+   select 'catalog channel', 'catalog_page' || catalog_page_id, sales,
+          returns, profit
+   from (select cp_catalog_page_id catalog_page_id,
+                sum(cs_ext_sales_price) sales,
+                sum(coalesce(cr_return_amount, 0)) returns,
+                sum(cs_net_profit - coalesce(cr_net_loss, 0)) profit
+         from catalog_sales left join catalog_returns
+              on cs_item_sk = cr_item_sk
+              and cs_order_number = cr_order_number,
+              date_dim, catalog_page, item, promotion
+         where cs_sold_date_sk = d_date_sk
+           and d_date between date '2000-08-23'
+               and date '2000-08-23' + interval '30' day
+           and cs_catalog_page_sk = cp_catalog_page_sk
+           and cs_item_sk = i_item_sk
+           and i_current_price > 50
+           and cs_promo_sk = p_promo_sk
+           and p_channel_tv = 'N'
+         group by cp_catalog_page_id) csr
+   union all
+   select 'web channel', 'web_site' || web_id, sales, returns, profit
+   from (select web_site_id web_id, sum(ws_ext_sales_price) sales,
+                sum(coalesce(wr_return_amt, 0)) returns,
+                sum(ws_net_profit - coalesce(wr_net_loss, 0)) profit
+         from web_sales left join web_returns
+              on ws_item_sk = wr_item_sk
+              and ws_order_number = wr_order_number,
+              date_dim, web_site, item, promotion
+         where ws_sold_date_sk = d_date_sk
+           and d_date between date '2000-08-23'
+               and date '2000-08-23' + interval '30' day
+           and ws_web_site_sk = web_site_sk
+           and ws_item_sk = i_item_sk
+           and i_current_price > 50
+           and ws_promo_sk = p_promo_sk
+           and p_channel_tv = 'N'
+         group by web_site_id) wsr
+"""
+
+QUERIES["q80"] = f"""
+select channel, id, sum(sales) sales, sum(returns) returns,
+       sum(profit) profit
+from ({_Q80_CHANNELS}) x
+group by rollup(channel, id)
+order by channel, id
+limit 100
+"""
+
+SQLITE_ORACLE["q80"] = (
+    _rollup_union(
+        ["channel", "id"],
+        "sum(sales) sales, sum(returns) returns, sum(profit) profit",
+        f"from ({_Q80_CHANNELS}) x",
+    )
+    + " order by 1 nulls last, 2 nulls last limit 100"
+)
+
+_Q77_BODY = """
+with ss as (
+  select s_store_sk, sum(ss_ext_sales_price) sales,
+         sum(ss_net_profit) profit
+  from store_sales, date_dim, store
+  where ss_sold_date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '30' day
+    and ss_store_sk = s_store_sk
+  group by s_store_sk),
+sr as (
+  select sr_store_sk s_store_sk, sum(sr_return_amt) returns,
+         sum(sr_net_loss) profit_loss
+  from store_returns, date_dim, store
+  where sr_returned_date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '30' day
+    and sr_store_sk = s_store_sk
+  group by sr_store_sk),
+cs as (
+  select cs_call_center_sk, sum(cs_ext_sales_price) sales,
+         sum(cs_net_profit) profit
+  from catalog_sales, date_dim
+  where cs_sold_date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '30' day
+  group by cs_call_center_sk),
+cr as (
+  select cr_call_center_sk, sum(cr_return_amount) returns,
+         sum(cr_net_loss) profit_loss
+  from catalog_returns, date_dim
+  where cr_returned_date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '30' day
+  group by cr_call_center_sk),
+ws as (
+  select wp_web_page_sk, sum(ws_ext_sales_price) sales,
+         sum(ws_net_profit) profit
+  from web_sales, date_dim, web_page
+  where ws_sold_date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '30' day
+    and ws_web_page_sk = wp_web_page_sk
+  group by wp_web_page_sk),
+wr as (
+  select wr_web_page_sk wp_web_page_sk, sum(wr_return_amt) returns,
+         sum(wr_net_loss) profit_loss
+  from web_returns, date_dim, web_page
+  where wr_returned_date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '30' day
+    and wr_web_page_sk = wp_web_page_sk
+  group by wr_web_page_sk)
+"""
+
+_Q77_UNION = """
+   select 'store channel' channel, ss.s_store_sk id, sales,
+          coalesce(returns, 0) returns,
+          profit - coalesce(profit_loss, 0) profit
+   from ss left join sr on ss.s_store_sk = sr.s_store_sk
+   union all
+   select 'catalog channel', cs_call_center_sk, sales, returns,
+          profit - profit_loss
+   from cs, cr
+   union all
+   select 'web channel', ws.wp_web_page_sk, sales,
+          coalesce(returns, 0) returns,
+          profit - coalesce(profit_loss, 0) profit
+   from ws left join wr on ws.wp_web_page_sk = wr.wp_web_page_sk
+"""
+
+QUERIES["q77"] = f"""
+{_Q77_BODY}
+select channel, id, sum(sales) sales, sum(returns) returns,
+       sum(profit) profit
+from ({_Q77_UNION}) x
+group by rollup(channel, id)
+order by channel, id, sales
+limit 100
+"""
+
+SQLITE_ORACLE["q77"] = (
+    _Q77_BODY
+    + _rollup_union(
+        ["channel", "id"],
+        "sum(sales) sales, sum(returns) returns, sum(profit) profit",
+        f"from ({_Q77_UNION}) x",
+    )
+    + " order by 1 nulls last, 2 nulls last, 3 limit 100"
+)
+
+_Q5_BODY = """
+with ssr as (
+  select s_store_id, sum(sales_price) sales, sum(profit) profit,
+         sum(return_amt) returns, sum(net_loss) profit_loss
+  from (select ss_store_sk store_sk, ss_sold_date_sk date_sk,
+               ss_ext_sales_price sales_price, ss_net_profit profit,
+               cast(0 as decimal(7,2)) return_amt,
+               cast(0 as decimal(7,2)) net_loss
+        from store_sales
+        union all
+        select sr_store_sk, sr_returned_date_sk,
+               cast(0 as decimal(7,2)), cast(0 as decimal(7,2)),
+               sr_return_amt, sr_net_loss
+        from store_returns) salesreturns, date_dim, store
+  where date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '14' day
+    and store_sk = s_store_sk
+  group by s_store_id),
+csr as (
+  select cp_catalog_page_id, sum(sales_price) sales,
+         sum(profit) profit, sum(return_amt) returns,
+         sum(net_loss) profit_loss
+  from (select cs_catalog_page_sk page_sk, cs_sold_date_sk date_sk,
+               cs_ext_sales_price sales_price, cs_net_profit profit,
+               cast(0 as decimal(7,2)) return_amt,
+               cast(0 as decimal(7,2)) net_loss
+        from catalog_sales
+        union all
+        select cr_catalog_page_sk, cr_returned_date_sk,
+               cast(0 as decimal(7,2)), cast(0 as decimal(7,2)),
+               cr_return_amount, cr_net_loss
+        from catalog_returns) salesreturns, date_dim, catalog_page
+  where date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '14' day
+    and page_sk = cp_catalog_page_sk
+  group by cp_catalog_page_id),
+wsr as (
+  select web_site_id, sum(sales_price) sales, sum(profit) profit,
+         sum(return_amt) returns, sum(net_loss) profit_loss
+  from (select ws_web_site_sk wsr_web_site_sk, ws_sold_date_sk date_sk,
+               ws_ext_sales_price sales_price, ws_net_profit profit,
+               cast(0 as decimal(7,2)) return_amt,
+               cast(0 as decimal(7,2)) net_loss
+        from web_sales
+        union all
+        select ws_web_site_sk, wr_returned_date_sk,
+               cast(0 as decimal(7,2)), cast(0 as decimal(7,2)),
+               wr_return_amt, wr_net_loss
+        from web_returns left join web_sales
+             on wr_item_sk = ws_item_sk
+             and wr_order_number = ws_order_number) salesreturns,
+       date_dim, web_site
+  where date_sk = d_date_sk
+    and d_date between date '2000-08-23'
+        and date '2000-08-23' + interval '14' day
+    and wsr_web_site_sk = web_site_sk
+  group by web_site_id)
+"""
+
+_Q5_UNION = """
+   select 'store channel' channel, 'store' || s_store_id id, sales,
+          returns, profit - profit_loss profit
+   from ssr
+   union all
+   select 'catalog channel', 'catalog_page' || cp_catalog_page_id,
+          sales, returns, profit - profit_loss
+   from csr
+   union all
+   select 'web channel', 'web_site' || web_site_id, sales, returns,
+          profit - profit_loss
+   from wsr
+"""
+
+QUERIES["q5"] = f"""
+{_Q5_BODY}
+select channel, id, sum(sales) sales, sum(returns) returns,
+       sum(profit) profit
+from ({_Q5_UNION}) x
+group by rollup(channel, id)
+order by channel, id
+limit 100
+"""
+
+SQLITE_ORACLE["q5"] = (
+    _Q5_BODY
+    + _rollup_union(
+        ["channel", "id"],
+        "sum(sales) sales, sum(returns) returns, sum(profit) profit",
+        f"from ({_Q5_UNION}) x",
+    )
+    + " order by 1 nulls last, 2 nulls last limit 100"
+)
+
+
+# ---- round-5 additions ----------------------------------------------------
+# Canonical spec queries (benchmark definition set, restated in the
+# engine dialect with single-token aliases; reference:
+# testing/trino-benchmark-queries/.../sql/trino/tpcds/q*.sql).
+
+QUERIES["q1"] = """
+WITH
+  customer_total_return AS (
+   SELECT
+     sr_customer_sk ctr_customer_sk
+   , sr_store_sk ctr_store_sk
+   , sum(sr_return_amt) ctr_total_return
+   FROM
+     store_returns
+   , date_dim
+   WHERE (sr_returned_date_sk = d_date_sk)
+      AND (d_year = 2000)
+   GROUP BY sr_customer_sk, sr_store_sk
+) 
+SELECT c_customer_id
+FROM
+  customer_total_return ctr1
+, store
+, customer
+WHERE (ctr1.ctr_total_return > (
+      SELECT (avg(ctr_total_return) * 1.2)
+      FROM
+        customer_total_return ctr2
+      WHERE (ctr1.ctr_store_sk = ctr2.ctr_store_sk)
+   ))
+   AND (s_store_sk = ctr1.ctr_store_sk)
+   AND (s_state = 'TN')
+   AND (ctr1.ctr_customer_sk = c_customer_sk)
+ORDER BY c_customer_id ASC
+LIMIT 100
+"""
+
+QUERIES["q2"] = """
+WITH
+  wscs AS (
+   SELECT
+     sold_date_sk
+   , sales_price
+   FROM
+     (
+      SELECT
+        ws_sold_date_sk sold_date_sk
+      , ws_ext_sales_price sales_price
+      FROM
+        web_sales
+   )  
+UNION ALL (
+      SELECT
+        cs_sold_date_sk sold_date_sk
+      , cs_ext_sales_price sales_price
+      FROM
+        catalog_sales
+   ) ) 
+, wswscs AS (
+   SELECT
+     d_week_seq
+   , sum((CASE WHEN (d_day_name = 'Sunday') THEN sales_price ELSE null END)) sun_sales
+   , sum((CASE WHEN (d_day_name = 'Monday') THEN sales_price ELSE null END)) mon_sales
+   , sum((CASE WHEN (d_day_name = 'Tuesday') THEN sales_price ELSE null END)) tue_sales
+   , sum((CASE WHEN (d_day_name = 'Wednesday') THEN sales_price ELSE null END)) wed_sales
+   , sum((CASE WHEN (d_day_name = 'Thursday') THEN sales_price ELSE null END)) thu_sales
+   , sum((CASE WHEN (d_day_name = 'Friday') THEN sales_price ELSE null END)) fri_sales
+   , sum((CASE WHEN (d_day_name = 'Saturday') THEN sales_price ELSE null END)) sat_sales
+   FROM
+     wscs
+   , date_dim
+   WHERE (d_date_sk = sold_date_sk)
+   GROUP BY d_week_seq
+) 
+SELECT
+  d_week_seq1
+, round((sun_sales1 / sun_sales2), 2)
+, round((mon_sales1 / mon_sales2), 2)
+, round((tue_sales1 / tue_sales2), 2)
+, round((wed_sales1 / wed_sales2), 2)
+, round((thu_sales1 / thu_sales2), 2)
+, round((fri_sales1 / fri_sales2), 2)
+, round((sat_sales1 / sat_sales2), 2)
+FROM
+  (
+   SELECT
+     wswscs.d_week_seq d_week_seq1
+   , sun_sales sun_sales1
+   , mon_sales mon_sales1
+   , tue_sales tue_sales1
+   , wed_sales wed_sales1
+   , thu_sales thu_sales1
+   , fri_sales fri_sales1
+   , sat_sales sat_sales1
+   FROM
+     wswscs
+   , date_dim
+   WHERE (date_dim.d_week_seq = wswscs.d_week_seq)
+      AND (d_year = 2001)
+)  y
+, (
+   SELECT
+     wswscs.d_week_seq d_week_seq2
+   , sun_sales sun_sales2
+   , mon_sales mon_sales2
+   , tue_sales tue_sales2
+   , wed_sales wed_sales2
+   , thu_sales thu_sales2
+   , fri_sales fri_sales2
+   , sat_sales sat_sales2
+   FROM
+     wswscs
+   , date_dim
+   WHERE (date_dim.d_week_seq = wswscs.d_week_seq)
+      AND (d_year = (2001 + 1))
+)  z
+WHERE (d_week_seq1 = (d_week_seq2 - 53))
+ORDER BY d_week_seq1 ASC
+"""
+
+QUERIES["q4"] = """
+WITH
+  year_total AS (
+   SELECT
+     c_customer_id customer_id
+   , c_first_name customer_first_name
+   , c_last_name customer_last_name
+   , c_preferred_cust_flag customer_preferred_cust_flag
+   , c_birth_country customer_birth_country
+   , c_login customer_login
+   , c_email_address customer_email_address
+   , d_year dyear
+   , sum(((((ss_ext_list_price - ss_ext_wholesale_cost) - ss_ext_discount_amt) + ss_ext_sales_price) / 2)) year_total
+   , 's' sale_type
+   FROM
+     customer
+   , store_sales
+   , date_dim
+   WHERE (c_customer_sk = ss_customer_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+   GROUP BY c_customer_id, c_first_name, c_last_name, c_preferred_cust_flag, c_birth_country, c_login, c_email_address, d_year
+UNION ALL    SELECT
+     c_customer_id customer_id
+   , c_first_name customer_first_name
+   , c_last_name customer_last_name
+   , c_preferred_cust_flag customer_preferred_cust_flag
+   , c_birth_country customer_birth_country
+   , c_login customer_login
+   , c_email_address customer_email_address
+   , d_year dyear
+   , sum(((((cs_ext_list_price - cs_ext_wholesale_cost) - cs_ext_discount_amt) + cs_ext_sales_price) / 2)) year_total
+   , 'c' sale_type
+   FROM
+     customer
+   , catalog_sales
+   , date_dim
+   WHERE (c_customer_sk = cs_bill_customer_sk)
+      AND (cs_sold_date_sk = d_date_sk)
+   GROUP BY c_customer_id, c_first_name, c_last_name, c_preferred_cust_flag, c_birth_country, c_login, c_email_address, d_year
+UNION ALL    SELECT
+     c_customer_id customer_id
+   , c_first_name customer_first_name
+   , c_last_name customer_last_name
+   , c_preferred_cust_flag customer_preferred_cust_flag
+   , c_birth_country customer_birth_country
+   , c_login customer_login
+   , c_email_address customer_email_address
+   , d_year dyear
+   , sum(((((ws_ext_list_price - ws_ext_wholesale_cost) - ws_ext_discount_amt) + ws_ext_sales_price) / 2)) year_total
+   , 'w' sale_type
+   FROM
+     customer
+   , web_sales
+   , date_dim
+   WHERE (c_customer_sk = ws_bill_customer_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+   GROUP BY c_customer_id, c_first_name, c_last_name, c_preferred_cust_flag, c_birth_country, c_login, c_email_address, d_year
+) 
+SELECT
+  t_s_secyear.customer_id
+, t_s_secyear.customer_first_name
+, t_s_secyear.customer_last_name
+, t_s_secyear.customer_preferred_cust_flag
+FROM
+  year_total t_s_firstyear
+, year_total t_s_secyear
+, year_total t_c_firstyear
+, year_total t_c_secyear
+, year_total t_w_firstyear
+, year_total t_w_secyear
+WHERE (t_s_secyear.customer_id = t_s_firstyear.customer_id)
+   AND (t_s_firstyear.customer_id = t_c_secyear.customer_id)
+   AND (t_s_firstyear.customer_id = t_c_firstyear.customer_id)
+   AND (t_s_firstyear.customer_id = t_w_firstyear.customer_id)
+   AND (t_s_firstyear.customer_id = t_w_secyear.customer_id)
+   AND (t_s_firstyear.sale_type = 's')
+   AND (t_c_firstyear.sale_type = 'c')
+   AND (t_w_firstyear.sale_type = 'w')
+   AND (t_s_secyear.sale_type = 's')
+   AND (t_c_secyear.sale_type = 'c')
+   AND (t_w_secyear.sale_type = 'w')
+   AND (t_s_firstyear.dyear = 2001)
+   AND (t_s_secyear.dyear = (2001 + 1))
+   AND (t_c_firstyear.dyear = 2001)
+   AND (t_c_secyear.dyear = (2001 + 1))
+   AND (t_w_firstyear.dyear = 2001)
+   AND (t_w_secyear.dyear = (2001 + 1))
+   AND (t_s_firstyear.year_total > 0)
+   AND (t_c_firstyear.year_total > 0)
+   AND (t_w_firstyear.year_total > 0)
+   AND ((CASE WHEN (t_c_firstyear.year_total > 0) THEN (t_c_secyear.year_total / t_c_firstyear.year_total) ELSE null END) > (CASE WHEN (t_s_firstyear.year_total > 0) THEN (t_s_secyear.year_total / t_s_firstyear.year_total) ELSE null END))
+   AND ((CASE WHEN (t_c_firstyear.year_total > 0) THEN (t_c_secyear.year_total / t_c_firstyear.year_total) ELSE null END) > (CASE WHEN (t_w_firstyear.year_total > 0) THEN (t_w_secyear.year_total / t_w_firstyear.year_total) ELSE null END))
+ORDER BY t_s_secyear.customer_id ASC, t_s_secyear.customer_first_name ASC, t_s_secyear.customer_last_name ASC, t_s_secyear.customer_preferred_cust_flag ASC
+LIMIT 100
+"""
+
+QUERIES["q6"] = """
+SELECT
+  a.ca_state state_
+, count(*) cnt
+FROM
+  customer_address a
+, customer c
+, store_sales s
+, date_dim d
+, item i
+WHERE (a.ca_address_sk = c.c_current_addr_sk)
+   AND (c.c_customer_sk = s.ss_customer_sk)
+   AND (s.ss_sold_date_sk = d.d_date_sk)
+   AND (s.ss_item_sk = i.i_item_sk)
+   AND (d.d_month_seq = (
+      SELECT DISTINCT d_month_seq
+      FROM
+        date_dim
+      WHERE (d_year = 2001)
+         AND (d_moy = 1)
+   ))
+   AND (i.i_current_price > (1.2 * (
+         SELECT avg(j.i_current_price)
+         FROM
+           item j
+         WHERE (j.i_category = i.i_category)
+      )))
+GROUP BY a.ca_state
+HAVING (count(*) >= 10)
+ORDER BY cnt ASC, a.ca_state ASC
+LIMIT 100
+"""
+
+QUERIES["q8"] = """
+SELECT
+  s_store_name
+, sum(ss_net_profit)
+FROM
+  store_sales
+, date_dim
+, store
+, (
+   SELECT ca_zip
+   FROM
+     (
+(
+         SELECT substr(ca_zip, 1, 5) ca_zip
+         FROM
+           customer_address
+         WHERE (substr(ca_zip, 1, 5) IN (
+                '24128'
+              , '57834'
+              , '13354'
+              , '15734'
+              , '78668'
+              , '76232'
+              , '62878'
+              , '45375'
+              , '63435'
+              , '22245'
+              , '65084'
+              , '49130'
+              , '40558'
+              , '25733'
+              , '15798'
+              , '87816'
+              , '81096'
+              , '56458'
+              , '35474'
+              , '27156'
+              , '83926'
+              , '18840'
+              , '28286'
+              , '24676'
+              , '37930'
+              , '77556'
+              , '27700'
+              , '45266'
+              , '94627'
+              , '62971'
+              , '20548'
+              , '23470'
+              , '47305'
+              , '53535'
+              , '21337'
+              , '26231'
+              , '50412'
+              , '69399'
+              , '17879'
+              , '51622'
+              , '43848'
+              , '21195'
+              , '83921'
+              , '15559'
+              , '67853'
+              , '15126'
+              , '16021'
+              , '26233'
+              , '53268'
+              , '10567'
+              , '91137'
+              , '76107'
+              , '11101'
+              , '59166'
+              , '38415'
+              , '61265'
+              , '71954'
+              , '15371'
+              , '11928'
+              , '15455'
+              , '98294'
+              , '68309'
+              , '69913'
+              , '59402'
+              , '58263'
+              , '25782'
+              , '18119'
+              , '35942'
+              , '33282'
+              , '42029'
+              , '17920'
+              , '98359'
+              , '15882'
+              , '45721'
+              , '60279'
+              , '18426'
+              , '64544'
+              , '25631'
+              , '43933'
+              , '37125'
+              , '98235'
+              , '10336'
+              , '24610'
+              , '68101'
+              , '56240'
+              , '40081'
+              , '86379'
+              , '44165'
+              , '33515'
+              , '88190'
+              , '84093'
+              , '27068'
+              , '99076'
+              , '36634'
+              , '50308'
+              , '28577'
+              , '39736'
+              , '33786'
+              , '71286'
+              , '26859'
+              , '55565'
+              , '98569'
+              , '70738'
+              , '19736'
+              , '64457'
+              , '17183'
+              , '28915'
+              , '26653'
+              , '58058'
+              , '89091'
+              , '54601'
+              , '24206'
+              , '14328'
+              , '55253'
+              , '82136'
+              , '67897'
+              , '56529'
+              , '72305'
+              , '67473'
+              , '62377'
+              , '22752'
+              , '57647'
+              , '62496'
+              , '41918'
+              , '36233'
+              , '86284'
+              , '54917'
+              , '22152'
+              , '19515'
+              , '63837'
+              , '18376'
+              , '42961'
+              , '10144'
+              , '36495'
+              , '58078'
+              , '38607'
+              , '91110'
+              , '64147'
+              , '19430'
+              , '17043'
+              , '45200'
+              , '63981'
+              , '48425'
+              , '22351'
+              , '30010'
+              , '21756'
+              , '14922'
+              , '14663'
+              , '77191'
+              , '60099'
+              , '29741'
+              , '36420'
+              , '21076'
+              , '91393'
+              , '28810'
+              , '96765'
+              , '23006'
+              , '18799'
+              , '49156'
+              , '98025'
+              , '23932'
+              , '67467'
+              , '30450'
+              , '50298'
+              , '29178'
+              , '89360'
+              , '32754'
+              , '63089'
+              , '87501'
+              , '87343'
+              , '29839'
+              , '30903'
+              , '81019'
+              , '18652'
+              , '73273'
+              , '25989'
+              , '20260'
+              , '68893'
+              , '53179'
+              , '30469'
+              , '28898'
+              , '31671'
+              , '24996'
+              , '18767'
+              , '64034'
+              , '91068'
+              , '51798'
+              , '51200'
+              , '63193'
+              , '39516'
+              , '72550'
+              , '72325'
+              , '51211'
+              , '23968'
+              , '86057'
+              , '10390'
+              , '85816'
+              , '45692'
+              , '65164'
+              , '21309'
+              , '18845'
+              , '68621'
+              , '92712'
+              , '68880'
+              , '90257'
+              , '47770'
+              , '13955'
+              , '70466'
+              , '21286'
+              , '67875'
+              , '82636'
+              , '36446'
+              , '79994'
+              , '72823'
+              , '40162'
+              , '41367'
+              , '41766'
+              , '22437'
+              , '58470'
+              , '11356'
+              , '76638'
+              , '68806'
+              , '25280'
+              , '67301'
+              , '73650'
+              , '86198'
+              , '16725'
+              , '38935'
+              , '13394'
+              , '61810'
+              , '81312'
+              , '15146'
+              , '71791'
+              , '31016'
+              , '72013'
+              , '37126'
+              , '22744'
+              , '73134'
+              , '70372'
+              , '30431'
+              , '39192'
+              , '35850'
+              , '56571'
+              , '67030'
+              , '22461'
+              , '88424'
+              , '88086'
+              , '14060'
+              , '40604'
+              , '19512'
+              , '72175'
+              , '51649'
+              , '19505'
+              , '24317'
+              , '13375'
+              , '81426'
+              , '18270'
+              , '72425'
+              , '45748'
+              , '55307'
+              , '53672'
+              , '52867'
+              , '56575'
+              , '39127'
+              , '30625'
+              , '10445'
+              , '39972'
+              , '74351'
+              , '26065'
+              , '83849'
+              , '42666'
+              , '96976'
+              , '68786'
+              , '77721'
+              , '68908'
+              , '66864'
+              , '63792'
+              , '51650'
+              , '31029'
+              , '26689'
+              , '66708'
+              , '11376'
+              , '20004'
+              , '31880'
+              , '96451'
+              , '41248'
+              , '94898'
+              , '18383'
+              , '60576'
+              , '38193'
+              , '48583'
+              , '13595'
+              , '76614'
+              , '24671'
+              , '46820'
+              , '82276'
+              , '10516'
+              , '11634'
+              , '45549'
+              , '88885'
+              , '18842'
+              , '90225'
+              , '18906'
+              , '13376'
+              , '84935'
+              , '78890'
+              , '58943'
+              , '15765'
+              , '50016'
+              , '69035'
+              , '49448'
+              , '39371'
+              , '41368'
+              , '33123'
+              , '83144'
+              , '14089'
+              , '94945'
+              , '73241'
+              , '19769'
+              , '47537'
+              , '38122'
+              , '28587'
+              , '76698'
+              , '22927'
+              , '56616'
+              , '34425'
+              , '96576'
+              , '78567'
+              , '97789'
+              , '94983'
+              , '79077'
+              , '57855'
+              , '97189'
+              , '46081'
+              , '48033'
+              , '19849'
+              , '28488'
+              , '28545'
+              , '72151'
+              , '69952'
+              , '43285'
+              , '26105'
+              , '76231'
+              , '15723'
+              , '25486'
+              , '39861'
+              , '83933'
+              , '75691'
+              , '46136'
+              , '61547'
+              , '66162'
+              , '25858'
+              , '22246'
+              , '51949'
+              , '27385'
+              , '77610'
+              , '34322'
+              , '51061'
+              , '68100'
+              , '61860'
+              , '13695'
+              , '44438'
+              , '90578'
+              , '96888'
+              , '58048'
+              , '99543'
+              , '73171'
+              , '56691'
+              , '64528'
+              , '56910'
+              , '83444'
+              , '30122'
+              , '68014'
+              , '14171'
+              , '16807'
+              , '83041'
+              , '34102'
+              , '51103'
+              , '79777'
+              , '17871'
+              , '12305'
+              , '22685'
+              , '94167'
+              , '28709'
+              , '35258'
+              , '57665'
+              , '71256'
+              , '57047'
+              , '11489'
+              , '31387'
+              , '68341'
+              , '78451'
+              , '14867'
+              , '25103'
+              , '35458'
+              , '25003'
+              , '54364'
+              , '73520'
+              , '32213'
+              , '35576'))
+      )       INTERSECT (
+         SELECT ca_zip
+         FROM
+           (
+            SELECT
+              substr(ca_zip, 1, 5) ca_zip
+            , count(*) cnt
+            FROM
+              customer_address
+            , customer
+            WHERE (ca_address_sk = c_current_addr_sk)
+               AND (c_preferred_cust_flag = 'Y')
+            GROUP BY ca_zip
+            HAVING (count(*) > 10)
+         )  a1
+      )    )  a2
+)  v1
+WHERE (ss_store_sk = s_store_sk)
+   AND (ss_sold_date_sk = d_date_sk)
+   AND (d_qoy = 2)
+   AND (d_year = 1998)
+   AND (substr(s_zip, 1, 2) = substr(v1.ca_zip, 1, 2))
+GROUP BY s_store_name
+ORDER BY s_store_name ASC
+LIMIT 100
+"""
+
+QUERIES["q11"] = """
+WITH
+  year_total AS (
+   SELECT
+     c_customer_id customer_id
+   , c_first_name customer_first_name
+   , c_last_name customer_last_name
+   , c_preferred_cust_flag customer_preferred_cust_flag
+   , c_birth_country customer_birth_country
+   , c_login customer_login
+   , c_email_address customer_email_address
+   , d_year dyear
+   , sum((ss_ext_list_price - ss_ext_discount_amt)) year_total
+   , 's' sale_type
+   FROM
+     customer
+   , store_sales
+   , date_dim
+   WHERE (c_customer_sk = ss_customer_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+   GROUP BY c_customer_id, c_first_name, c_last_name, c_preferred_cust_flag, c_birth_country, c_login, c_email_address, d_year
+UNION ALL    SELECT
+     c_customer_id customer_id
+   , c_first_name customer_first_name
+   , c_last_name customer_last_name
+   , c_preferred_cust_flag customer_preferred_cust_flag
+   , c_birth_country customer_birth_country
+   , c_login customer_login
+   , c_email_address customer_email_address
+   , d_year dyear
+   , sum((ws_ext_list_price - ws_ext_discount_amt)) year_total
+   , 'w' sale_type
+   FROM
+     customer
+   , web_sales
+   , date_dim
+   WHERE (c_customer_sk = ws_bill_customer_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+   GROUP BY c_customer_id, c_first_name, c_last_name, c_preferred_cust_flag, c_birth_country, c_login, c_email_address, d_year
+) 
+SELECT
+  t_s_secyear.customer_id
+, t_s_secyear.customer_first_name
+, t_s_secyear.customer_last_name
+, t_s_secyear.customer_preferred_cust_flag
+, t_s_secyear.customer_birth_country
+, t_s_secyear.customer_login
+FROM
+  year_total t_s_firstyear
+, year_total t_s_secyear
+, year_total t_w_firstyear
+, year_total t_w_secyear
+WHERE (t_s_secyear.customer_id = t_s_firstyear.customer_id)
+   AND (t_s_firstyear.customer_id = t_w_secyear.customer_id)
+   AND (t_s_firstyear.customer_id = t_w_firstyear.customer_id)
+   AND (t_s_firstyear.sale_type = 's')
+   AND (t_w_firstyear.sale_type = 'w')
+   AND (t_s_secyear.sale_type = 's')
+   AND (t_w_secyear.sale_type = 'w')
+   AND (t_s_firstyear.dyear = 2001)
+   AND (t_s_secyear.dyear = (2001 + 1))
+   AND (t_w_firstyear.dyear = 2001)
+   AND (t_w_secyear.dyear = (2001 + 1))
+   AND (t_s_firstyear.year_total > 0)
+   AND (t_w_firstyear.year_total > 0)
+   AND ((CASE WHEN (t_w_firstyear.year_total > 0) THEN (t_w_secyear.year_total / t_w_firstyear.year_total) ELSE 0.0 END) > (CASE WHEN (t_s_firstyear.year_total > 0) THEN (t_s_secyear.year_total / t_s_firstyear.year_total) ELSE 0.0 END))
+ORDER BY t_s_secyear.customer_id ASC, t_s_secyear.customer_first_name ASC, t_s_secyear.customer_last_name ASC, t_s_secyear.customer_preferred_cust_flag ASC
+LIMIT 100
+"""
+
+QUERIES["q16"] = """
+SELECT
+  count(DISTINCT cs_order_number) order_count
+, sum(cs_ext_ship_cost) total_shipping_cost
+, sum(cs_net_profit) total_net_profit
+FROM
+  catalog_sales cs1
+, date_dim
+, customer_address
+, call_center
+WHERE (d_date BETWEEN CAST('2002-2-01' AS DATE) AND (CAST('2002-2-01' AS DATE) + INTERVAL  '60' DAY))
+   AND (cs1.cs_ship_date_sk = d_date_sk)
+   AND (cs1.cs_ship_addr_sk = ca_address_sk)
+   AND (ca_state = 'GA')
+   AND (cs1.cs_call_center_sk = cc_call_center_sk)
+   AND (cc_county IN ('Williamson County', 'Williamson County', 'Williamson County', 'Williamson County', 'Williamson County'))
+   AND (EXISTS (
+   SELECT *
+   FROM
+     catalog_sales cs2
+   WHERE (cs1.cs_order_number = cs2.cs_order_number)
+      AND (cs1.cs_warehouse_sk <> cs2.cs_warehouse_sk)
+))
+   AND (NOT (EXISTS (
+   SELECT *
+   FROM
+     catalog_returns cr1
+   WHERE (cs1.cs_order_number = cr1.cr_order_number)
+)))
+ORDER BY count(DISTINCT cs_order_number) ASC
+LIMIT 100
+"""
+
+QUERIES["q17"] = """
+SELECT
+  i_item_id
+, i_item_desc
+, s_state
+, count(ss_quantity) store_sales_quantitycount
+, avg(ss_quantity) store_sales_quantityave
+, stddev_samp(ss_quantity) store_sales_quantitystdev
+, (stddev_samp(ss_quantity) / avg(ss_quantity)) store_sales_quantitycov
+, count(sr_return_quantity) store_returns_quantitycount
+, avg(sr_return_quantity) store_returns_quantityave
+, stddev_samp(sr_return_quantity) store_returns_quantitystdev
+, (stddev_samp(sr_return_quantity) / avg(sr_return_quantity)) store_returns_quantitycov
+, count(cs_quantity) catalog_sales_quantitycount
+, avg(cs_quantity) catalog_sales_quantityave
+, stddev_samp(cs_quantity) catalog_sales_quantitystdev
+, (stddev_samp(cs_quantity) / avg(cs_quantity)) catalog_sales_quantitycov
+FROM
+  store_sales
+, store_returns
+, catalog_sales
+, date_dim d1
+, date_dim d2
+, date_dim d3
+, store
+, item
+WHERE (d1.d_quarter_name = '2001Q1')
+   AND (d1.d_date_sk = ss_sold_date_sk)
+   AND (i_item_sk = ss_item_sk)
+   AND (s_store_sk = ss_store_sk)
+   AND (ss_customer_sk = sr_customer_sk)
+   AND (ss_item_sk = sr_item_sk)
+   AND (ss_ticket_number = sr_ticket_number)
+   AND (sr_returned_date_sk = d2.d_date_sk)
+   AND (d2.d_quarter_name IN ('2001Q1', '2001Q2', '2001Q3'))
+   AND (sr_customer_sk = cs_bill_customer_sk)
+   AND (sr_item_sk = cs_item_sk)
+   AND (cs_sold_date_sk = d3.d_date_sk)
+   AND (d3.d_quarter_name IN ('2001Q1', '2001Q2', '2001Q3'))
+GROUP BY i_item_id, i_item_desc, s_state
+ORDER BY i_item_id ASC, i_item_desc ASC, s_state ASC
+LIMIT 100
+"""
+
+QUERIES["q21"] = """
+SELECT *
+FROM
+  (
+   SELECT
+     w_warehouse_name
+   , i_item_id
+   , sum((CASE WHEN (CAST(d_date AS DATE) < CAST('2000-03-11' AS DATE)) THEN inv_quantity_on_hand ELSE 0 END)) inv_before
+   , sum((CASE WHEN (CAST(d_date AS DATE) >= CAST('2000-03-11' AS DATE)) THEN inv_quantity_on_hand ELSE 0 END)) inv_after
+   FROM
+     inventory
+   , warehouse
+   , item
+   , date_dim
+   WHERE (i_current_price BETWEEN 0.99 AND 1.49)
+      AND (i_item_sk = inv_item_sk)
+      AND (inv_warehouse_sk = w_warehouse_sk)
+      AND (inv_date_sk = d_date_sk)
+      AND (d_date BETWEEN (CAST('2000-03-11' AS DATE) - INTERVAL  '30' DAY) AND (CAST('2000-03-11' AS DATE) + INTERVAL  '30' DAY))
+   GROUP BY w_warehouse_name, i_item_id
+)  x
+WHERE ((CASE WHEN (inv_before > 0) THEN (CAST(inv_after AS DECIMAL(7,2)) / inv_before) ELSE null END) BETWEEN (2.00 / 3.00) AND (3.00 / 2.00))
+ORDER BY w_warehouse_name ASC, i_item_id ASC
+LIMIT 100
+"""
+
+QUERIES["q23"] = """
+WITH
+  frequent_ss_items AS (
+   SELECT
+     substr(i_item_desc, 1, 30) itemdesc
+   , i_item_sk item_sk
+   , d_date solddate
+   , count(*) cnt
+   FROM
+     store_sales
+   , date_dim
+   , item
+   WHERE (ss_sold_date_sk = d_date_sk)
+      AND (ss_item_sk = i_item_sk)
+      AND (d_year IN (2000   , (2000 + 1)   , (2000 + 2)   , (2000 + 3)))
+   GROUP BY substr(i_item_desc, 1, 30), i_item_sk, d_date
+   HAVING (count(*) > 4)
+) 
+, max_store_sales AS (
+   SELECT max(csales) tpcds_cmax
+   FROM
+     (
+      SELECT
+        c_customer_sk
+      , sum((ss_quantity * ss_sales_price)) csales
+      FROM
+        store_sales
+      , customer
+      , date_dim
+      WHERE (ss_customer_sk = c_customer_sk)
+         AND (ss_sold_date_sk = d_date_sk)
+         AND (d_year IN (2000      , (2000 + 1)      , (2000 + 2)      , (2000 + 3)))
+      GROUP BY c_customer_sk
+   ) 
+) 
+, best_ss_customer AS (
+   SELECT
+     c_customer_sk
+   , sum((ss_quantity * ss_sales_price)) ssales
+   FROM
+     store_sales
+   , customer
+   WHERE (ss_customer_sk = c_customer_sk)
+   GROUP BY c_customer_sk
+   HAVING (sum((ss_quantity * ss_sales_price)) > ((50 / 100.0) * (
+            SELECT *
+            FROM
+              max_store_sales
+         )))
+) 
+SELECT sum(sales)
+FROM
+  (
+   SELECT (cs_quantity * cs_list_price) sales
+   FROM
+     catalog_sales
+   , date_dim
+   WHERE (d_year = 2000)
+      AND (d_moy = 2)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (cs_item_sk IN (
+      SELECT item_sk
+      FROM
+        frequent_ss_items
+   ))
+      AND (cs_bill_customer_sk IN (
+      SELECT c_customer_sk
+      FROM
+        best_ss_customer
+   ))
+UNION ALL    SELECT (ws_quantity * ws_list_price) sales
+   FROM
+     web_sales
+   , date_dim
+   WHERE (d_year = 2000)
+      AND (d_moy = 2)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (ws_item_sk IN (
+      SELECT item_sk
+      FROM
+        frequent_ss_items
+   ))
+      AND (ws_bill_customer_sk IN (
+      SELECT c_customer_sk
+      FROM
+        best_ss_customer
+   ))
+) 
+LIMIT 100
+"""
+
+QUERIES["q24"] = """
+WITH
+  ssales AS (
+   SELECT
+     c_last_name
+   , c_first_name
+   , s_store_name
+   , ca_state
+   , s_state
+   , i_color
+   , i_current_price
+   , i_manager_id
+   , i_units
+   , i_size
+   , sum(ss_net_paid) netpaid
+   FROM
+     store_sales
+   , store_returns
+   , store
+   , item
+   , customer
+   , customer_address
+   WHERE (ss_ticket_number = sr_ticket_number)
+      AND (ss_item_sk = sr_item_sk)
+      AND (ss_customer_sk = c_customer_sk)
+      AND (ss_item_sk = i_item_sk)
+      AND (ss_store_sk = s_store_sk)
+      AND (c_birth_country = upper(ca_country))
+      AND (s_zip = ca_zip)
+      AND (s_market_id = 8)
+   GROUP BY c_last_name, c_first_name, s_store_name, ca_state, s_state, i_color, i_current_price, i_manager_id, i_units, i_size
+)
+SELECT
+  c_last_name
+, c_first_name
+, s_store_name
+, sum(netpaid) paid
+FROM
+  ssales
+WHERE (i_color = 'pale')
+GROUP BY c_last_name, c_first_name, s_store_name
+HAVING (sum(netpaid) > (
+      SELECT (0.05 * avg(netpaid))
+      FROM
+        ssales
+   ))
+ORDER BY c_last_name, c_first_name, s_store_name
+"""
+
+QUERIES["q28"] = """
+SELECT *
+FROM
+  (
+   SELECT
+     avg(ss_list_price) b1_lp
+   , count(ss_list_price) b1_cnt
+   , count(DISTINCT ss_list_price) b1_cntd
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 0 AND 5)
+      AND ((ss_list_price BETWEEN 8 AND (8 + 10))
+         OR (ss_coupon_amt BETWEEN 459 AND (459 + 1000))
+         OR (ss_wholesale_cost BETWEEN 57 AND (57 + 20)))
+)  b1
+, (
+   SELECT
+     avg(ss_list_price) b2_lp
+   , count(ss_list_price) b2_cnt
+   , count(DISTINCT ss_list_price) b2_cntd
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 6 AND 10)
+      AND ((ss_list_price BETWEEN 90 AND (90 + 10))
+         OR (ss_coupon_amt BETWEEN 2323 AND (2323 + 1000))
+         OR (ss_wholesale_cost BETWEEN 31 AND (31 + 20)))
+)  b2
+, (
+   SELECT
+     avg(ss_list_price) b3_lp
+   , count(ss_list_price) b3_cnt
+   , count(DISTINCT ss_list_price) b3_cntd
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 11 AND 15)
+      AND ((ss_list_price BETWEEN 142 AND (142 + 10))
+         OR (ss_coupon_amt BETWEEN 12214 AND (12214 + 1000))
+         OR (ss_wholesale_cost BETWEEN 79 AND (79 + 20)))
+)  b3
+, (
+   SELECT
+     avg(ss_list_price) b4_lp
+   , count(ss_list_price) b4_cnt
+   , count(DISTINCT ss_list_price) b4_cntd
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 16 AND 20)
+      AND ((ss_list_price BETWEEN 135 AND (135 + 10))
+         OR (ss_coupon_amt BETWEEN 6071 AND (6071 + 1000))
+         OR (ss_wholesale_cost BETWEEN 38 AND (38 + 20)))
+)  b4
+, (
+   SELECT
+     avg(ss_list_price) b5_lp
+   , count(ss_list_price) b5_cnt
+   , count(DISTINCT ss_list_price) b5_cntd
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 21 AND 25)
+      AND ((ss_list_price BETWEEN 122 AND (122 + 10))
+         OR (ss_coupon_amt BETWEEN 836 AND (836 + 1000))
+         OR (ss_wholesale_cost BETWEEN 17 AND (17 + 20)))
+)  b5
+, (
+   SELECT
+     avg(ss_list_price) b6_lp
+   , count(ss_list_price) b6_cnt
+   , count(DISTINCT ss_list_price) b6_cntd
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 26 AND 30)
+      AND ((ss_list_price BETWEEN 154 AND (154 + 10))
+         OR (ss_coupon_amt BETWEEN 7326 AND (7326 + 1000))
+         OR (ss_wholesale_cost BETWEEN 7 AND (7 + 20)))
+)  b6
+LIMIT 100
+"""
+
+QUERIES["q29"] = """
+SELECT
+  i_item_id
+, i_item_desc
+, s_store_id
+, s_store_name
+, sum(ss_quantity) store_sales_quantity
+, sum(sr_return_quantity) store_returns_quantity
+, sum(cs_quantity) catalog_sales_quantity
+FROM
+  store_sales
+, store_returns
+, catalog_sales
+, date_dim d1
+, date_dim d2
+, date_dim d3
+, store
+, item
+WHERE (d1.d_moy = 9)
+   AND (d1.d_year = 1999)
+   AND (d1.d_date_sk = ss_sold_date_sk)
+   AND (i_item_sk = ss_item_sk)
+   AND (s_store_sk = ss_store_sk)
+   AND (ss_customer_sk = sr_customer_sk)
+   AND (ss_item_sk = sr_item_sk)
+   AND (ss_ticket_number = sr_ticket_number)
+   AND (sr_returned_date_sk = d2.d_date_sk)
+   AND (d2.d_moy BETWEEN 9 AND (9 + 3))
+   AND (d2.d_year = 1999)
+   AND (sr_customer_sk = cs_bill_customer_sk)
+   AND (sr_item_sk = cs_item_sk)
+   AND (cs_sold_date_sk = d3.d_date_sk)
+   AND (d3.d_year IN (1999, (1999 + 1), (1999 + 2)))
+GROUP BY i_item_id, i_item_desc, s_store_id, s_store_name
+ORDER BY i_item_id ASC, i_item_desc ASC, s_store_id ASC, s_store_name ASC
+LIMIT 100
+"""
+
+QUERIES["q30"] = """
+WITH
+  customer_total_return AS (
+   SELECT
+     wr_returning_customer_sk ctr_customer_sk
+   , ca_state ctr_state
+   , sum(wr_return_amt) ctr_total_return
+   FROM
+     web_returns
+   , date_dim
+   , customer_address
+   WHERE (wr_returned_date_sk = d_date_sk)
+      AND (d_year = 2002)
+      AND (wr_returning_addr_sk = ca_address_sk)
+   GROUP BY wr_returning_customer_sk, ca_state
+) 
+SELECT
+  c_customer_id
+, c_salutation
+, c_first_name
+, c_last_name
+, c_preferred_cust_flag
+, c_birth_day
+, c_birth_month
+, c_birth_year
+, c_birth_country
+, c_login
+, c_email_address
+, c_last_review_date_sk
+, ctr_total_return
+FROM
+  customer_total_return ctr1
+, customer_address
+, customer
+WHERE (ctr1.ctr_total_return > (
+      SELECT (avg(ctr_total_return) * 1.2)
+      FROM
+        customer_total_return ctr2
+      WHERE (ctr1.ctr_state = ctr2.ctr_state)
+   ))
+   AND (ca_address_sk = c_current_addr_sk)
+   AND (ca_state = 'GA')
+   AND (ctr1.ctr_customer_sk = c_customer_sk)
+ORDER BY c_customer_id ASC, c_salutation ASC, c_first_name ASC, c_last_name ASC, c_preferred_cust_flag ASC, c_birth_day ASC, c_birth_month ASC, c_birth_year ASC, c_birth_country ASC, c_login ASC, c_email_address ASC, c_last_review_date_sk ASC, ctr_total_return ASC
+LIMIT 100
+"""
+
+QUERIES["q31"] = """
+WITH
+  ss AS (
+   SELECT
+     ca_county
+   , d_qoy
+   , d_year
+   , sum(ss_ext_sales_price) store_sales
+   FROM
+     store_sales
+   , date_dim
+   , customer_address
+   WHERE (ss_sold_date_sk = d_date_sk)
+      AND (ss_addr_sk = ca_address_sk)
+   GROUP BY ca_county, d_qoy, d_year
+) 
+, ws AS (
+   SELECT
+     ca_county
+   , d_qoy
+   , d_year
+   , sum(ws_ext_sales_price) web_sales
+   FROM
+     web_sales
+   , date_dim
+   , customer_address
+   WHERE (ws_sold_date_sk = d_date_sk)
+      AND (ws_bill_addr_sk = ca_address_sk)
+   GROUP BY ca_county, d_qoy, d_year
+) 
+SELECT
+  ss1.ca_county
+, ss1.d_year
+, (ws2.web_sales / ws1.web_sales) web_q1_q2_increase
+, (ss2.store_sales / ss1.store_sales) store_q1_q2_increase
+, (ws3.web_sales / ws2.web_sales) web_q2_q3_increase
+, (ss3.store_sales / ss2.store_sales) store_q2_q3_increase
+FROM
+  ss ss1
+, ss ss2
+, ss ss3
+, ws ws1
+, ws ws2
+, ws ws3
+WHERE (ss1.d_qoy = 1)
+   AND (ss1.d_year = 2000)
+   AND (ss1.ca_county = ss2.ca_county)
+   AND (ss2.d_qoy = 2)
+   AND (ss2.d_year = 2000)
+   AND (ss2.ca_county = ss3.ca_county)
+   AND (ss3.d_qoy = 3)
+   AND (ss3.d_year = 2000)
+   AND (ss1.ca_county = ws1.ca_county)
+   AND (ws1.d_qoy = 1)
+   AND (ws1.d_year = 2000)
+   AND (ws1.ca_county = ws2.ca_county)
+   AND (ws2.d_qoy = 2)
+   AND (ws2.d_year = 2000)
+   AND (ws1.ca_county = ws3.ca_county)
+   AND (ws3.d_qoy = 3)
+   AND (ws3.d_year = 2000)
+   AND ((CASE WHEN (ws1.web_sales > 0) THEN (CAST(ws2.web_sales AS DECIMAL(38,3)) / ws1.web_sales) ELSE null END) > (CASE WHEN (ss1.store_sales > 0) THEN (CAST(ss2.store_sales AS DECIMAL(38,3)) / ss1.store_sales) ELSE null END))
+   AND ((CASE WHEN (ws2.web_sales > 0) THEN (CAST(ws3.web_sales AS DECIMAL(38,3)) / ws2.web_sales) ELSE null END) > (CASE WHEN (ss2.store_sales > 0) THEN (CAST(ss3.store_sales AS DECIMAL(38,3)) / ss2.store_sales) ELSE null END))
+ORDER BY ss1.ca_county ASC
+"""
+
+QUERIES["q32"] = """
+SELECT sum(cs_ext_discount_amt) excess_discount_amount
+FROM
+  catalog_sales
+, item
+, date_dim
+WHERE (i_manufact_id = 977)
+   AND (i_item_sk = cs_item_sk)
+   AND (d_date BETWEEN CAST('2000-01-27' AS DATE) AND (CAST('2000-01-27' AS DATE) + INTERVAL  '90' DAY))
+   AND (d_date_sk = cs_sold_date_sk)
+   AND (cs_ext_discount_amt > (
+      SELECT (1.3 * avg(cs_ext_discount_amt))
+      FROM
+        catalog_sales
+      , date_dim
+      WHERE (cs_item_sk = i_item_sk)
+         AND (d_date BETWEEN CAST('2000-01-27' AS DATE) AND (CAST('2000-01-27' AS DATE) + INTERVAL  '90' DAY))
+         AND (d_date_sk = cs_sold_date_sk)
+   ))
+LIMIT 100
+"""
+
+QUERIES["q33"] = """
+WITH
+  ss AS (
+   SELECT
+     i_manufact_id
+   , sum(ss_ext_sales_price) total_sales
+   FROM
+     store_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_manufact_id IN (
+      SELECT i_manufact_id
+      FROM
+        item
+      WHERE (i_category IN ('Electronics'))
+   ))
+      AND (ss_item_sk = i_item_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year = 1998)
+      AND (d_moy = 5)
+      AND (ss_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_manufact_id
+) 
+, cs AS (
+   SELECT
+     i_manufact_id
+   , sum(cs_ext_sales_price) total_sales
+   FROM
+     catalog_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_manufact_id IN (
+      SELECT i_manufact_id
+      FROM
+        item
+      WHERE (i_category IN ('Electronics'))
+   ))
+      AND (cs_item_sk = i_item_sk)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (d_year = 1998)
+      AND (d_moy = 5)
+      AND (cs_bill_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_manufact_id
+) 
+, ws AS (
+   SELECT
+     i_manufact_id
+   , sum(ws_ext_sales_price) total_sales
+   FROM
+     web_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_manufact_id IN (
+      SELECT i_manufact_id
+      FROM
+        item
+      WHERE (i_category IN ('Electronics'))
+   ))
+      AND (ws_item_sk = i_item_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (d_year = 1998)
+      AND (d_moy = 5)
+      AND (ws_bill_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_manufact_id
+) 
+SELECT
+  i_manufact_id
+, sum(total_sales) total_sales
+FROM
+  (
+   SELECT *
+   FROM
+     ss
+UNION ALL    SELECT *
+   FROM
+     cs
+UNION ALL    SELECT *
+   FROM
+     ws
+)  tmp1
+GROUP BY i_manufact_id
+ORDER BY total_sales ASC
+LIMIT 100
+"""
+
+QUERIES["q38"] = """
+SELECT count(*)
+FROM
+  (
+   SELECT DISTINCT
+     c_last_name
+   , c_first_name
+   , d_date
+   FROM
+     store_sales
+   , date_dim
+   , customer
+   WHERE (store_sales.ss_sold_date_sk = date_dim.d_date_sk)
+      AND (store_sales.ss_customer_sk = customer.c_customer_sk)
+      AND (d_month_seq BETWEEN 1200 AND (1200 + 11))
+INTERSECT    SELECT DISTINCT
+     c_last_name
+   , c_first_name
+   , d_date
+   FROM
+     catalog_sales
+   , date_dim
+   , customer
+   WHERE (catalog_sales.cs_sold_date_sk = date_dim.d_date_sk)
+      AND (catalog_sales.cs_bill_customer_sk = customer.c_customer_sk)
+      AND (d_month_seq BETWEEN 1200 AND (1200 + 11))
+INTERSECT    SELECT DISTINCT
+     c_last_name
+   , c_first_name
+   , d_date
+   FROM
+     web_sales
+   , date_dim
+   , customer
+   WHERE (web_sales.ws_sold_date_sk = date_dim.d_date_sk)
+      AND (web_sales.ws_bill_customer_sk = customer.c_customer_sk)
+      AND (d_month_seq BETWEEN 1200 AND (1200 + 11))
+)  hot_cust
+LIMIT 100
+"""
+
+QUERIES["q39"] = """
+WITH
+  inv AS (
+   SELECT
+     w_warehouse_name
+   , w_warehouse_sk
+   , i_item_sk
+   , d_moy
+   , stdev
+   , mean
+   , (CASE mean WHEN 0 THEN null ELSE (stdev / mean) END) cov
+   FROM
+     (
+      SELECT
+        w_warehouse_name
+      , w_warehouse_sk
+      , i_item_sk
+      , d_moy
+      , stddev_samp(inv_quantity_on_hand) stdev
+      , avg(inv_quantity_on_hand) mean
+      FROM
+        inventory
+      , item
+      , warehouse
+      , date_dim
+      WHERE (inv_item_sk = i_item_sk)
+         AND (inv_warehouse_sk = w_warehouse_sk)
+         AND (inv_date_sk = d_date_sk)
+         AND (d_year = 2001)
+      GROUP BY w_warehouse_name, w_warehouse_sk, i_item_sk, d_moy
+   )  foo
+   WHERE ((CASE mean WHEN 0 THEN 0 ELSE (stdev / mean) END) > 1)
+) 
+SELECT
+  inv1.w_warehouse_sk
+, inv1.i_item_sk
+, inv1.d_moy
+, inv1.mean
+, CAST(inv1.cov AS DECIMAL(30, 10)) -- decrease precision to avoid unstable results due to roundings
+, inv2.w_warehouse_sk
+, inv2.i_item_sk
+, inv2.d_moy
+, inv2.mean
+, CAST(inv2.cov AS DECIMAL(30, 10)) -- decrease precision to avoid unstable results due to roundings
+FROM
+  inv inv1
+, inv inv2
+WHERE (inv1.i_item_sk = inv2.i_item_sk)
+   AND (inv1.w_warehouse_sk = inv2.w_warehouse_sk)
+   AND (inv1.d_moy = 1)
+   AND (inv2.d_moy = (1 + 1))
+   AND (inv1.cov > 1.5)
+ORDER BY inv1.w_warehouse_sk ASC, inv1.i_item_sk ASC, inv1.d_moy ASC, inv1.mean ASC, inv1.cov ASC, inv2.d_moy ASC, inv2.mean ASC, inv2.cov ASC
+"""
+
+QUERIES["q40"] = """
+SELECT
+  w_state
+, i_item_id
+, sum((CASE WHEN (CAST(d_date AS DATE) < CAST('2000-03-11' AS DATE)) THEN (cs_sales_price - COALESCE(cr_refunded_cash, 0)) ELSE 0 END)) sales_before
+, sum((CASE WHEN (CAST(d_date AS DATE) >= CAST('2000-03-11' AS DATE)) THEN (cs_sales_price - COALESCE(cr_refunded_cash, 0)) ELSE 0 END)) sales_after
+FROM
+  (catalog_sales
+LEFT JOIN catalog_returns ON (cs_order_number = cr_order_number)
+   AND (cs_item_sk = cr_item_sk))
+, warehouse
+, item
+, date_dim
+WHERE (i_current_price BETWEEN 0.99 AND 1.49)
+   AND (i_item_sk = cs_item_sk)
+   AND (cs_warehouse_sk = w_warehouse_sk)
+   AND (cs_sold_date_sk = d_date_sk)
+   AND (CAST(d_date AS DATE) BETWEEN (CAST('2000-03-11' AS DATE) - INTERVAL  '30' DAY) AND (CAST('2000-03-11' AS DATE) + INTERVAL  '30' DAY))
+GROUP BY w_state, i_item_id
+ORDER BY w_state ASC, i_item_id ASC
+LIMIT 100
+"""
+
+QUERIES["q44"] = """
+SELECT
+  asceding.rnk
+, i1.i_product_name best_performing
+, i2.i_product_name worst_performing
+FROM
+  (
+   SELECT *
+   FROM
+     (
+      SELECT
+        item_sk
+      , rank() OVER (ORDER BY rank_col ASC) rnk
+      FROM
+        (
+         SELECT
+           ss_item_sk item_sk
+         , avg(ss_net_profit) rank_col
+         FROM
+           store_sales ss1
+         WHERE (ss_store_sk = 4)
+         GROUP BY ss_item_sk
+         HAVING (avg(ss_net_profit) > (0.9 * (
+                  SELECT avg(ss_net_profit) rank_col
+                  FROM
+                    store_sales
+                  WHERE (ss_store_sk = 4)
+                     AND (ss_addr_sk IS NULL)
+                  GROUP BY ss_store_sk
+               )))
+      )  v1
+   )  v11
+   WHERE (rnk < 11)
+)  asceding
+, (
+   SELECT *
+   FROM
+     (
+      SELECT
+        item_sk
+      , rank() OVER (ORDER BY rank_col DESC) rnk
+      FROM
+        (
+         SELECT
+           ss_item_sk item_sk
+         , avg(ss_net_profit) rank_col
+         FROM
+           store_sales ss1
+         WHERE (ss_store_sk = 4)
+         GROUP BY ss_item_sk
+         HAVING (avg(ss_net_profit) > (0.9 * (
+                  SELECT avg(ss_net_profit) rank_col
+                  FROM
+                    store_sales
+                  WHERE (ss_store_sk = 4)
+                     AND (ss_addr_sk IS NULL)
+                  GROUP BY ss_store_sk
+               )))
+      )  v2
+   )  v21
+   WHERE (rnk < 11)
+)  descending
+, item i1
+, item i2
+WHERE (asceding.rnk = descending.rnk)
+   AND (i1.i_item_sk = asceding.item_sk)
+   AND (i2.i_item_sk = descending.item_sk)
+ORDER BY asceding.rnk ASC,
+   -- additional columns to assure results stability for larger scale factors; this is a deviation from TPC-DS specification
+   i1.i_product_name ASC, i2.i_product_name ASC
+LIMIT 100
+"""
+
+QUERIES["q49"] = """
+SELECT
+  'web' channel
+, web.item
+, web.return_ratio
+, web.return_rank
+, web.currency_rank
+FROM
+  (
+   SELECT
+     item
+   , return_ratio
+   , currency_ratio
+   , rank() OVER (ORDER BY return_ratio ASC) return_rank
+   , rank() OVER (ORDER BY currency_ratio ASC) currency_rank
+   FROM
+     (
+      SELECT
+        ws.ws_item_sk item
+      , (CAST(sum(COALESCE(wr.wr_return_quantity, 0)) AS DECIMAL(15,4)) / CAST(sum(COALESCE(ws.ws_quantity, 0)) AS DECIMAL(15,4))) return_ratio
+      , (CAST(sum(COALESCE(wr.wr_return_amt, 0)) AS DECIMAL(15,4)) / CAST(sum(COALESCE(ws.ws_net_paid, 0)) AS DECIMAL(15,4))) currency_ratio
+      FROM
+        (web_sales ws
+      LEFT JOIN web_returns wr ON (ws.ws_order_number = wr.wr_order_number)
+         AND (ws.ws_item_sk = wr.wr_item_sk))
+      , date_dim
+      WHERE (wr.wr_return_amt > 10000)
+         AND (ws.ws_net_profit > 1)
+         AND (ws.ws_net_paid > 0)
+         AND (ws.ws_quantity > 0)
+         AND (ws_sold_date_sk = d_date_sk)
+         AND (d_year = 2001)
+         AND (d_moy = 12)
+      GROUP BY ws.ws_item_sk
+   )  in_web
+)  web
+WHERE (web.return_rank <= 10)
+   OR (web.currency_rank <= 10)
+UNION SELECT
+  'catalog' channel
+, catalog.item
+, catalog.return_ratio
+, catalog.return_rank
+, catalog.currency_rank
+FROM
+  (
+   SELECT
+     item
+   , return_ratio
+   , currency_ratio
+   , rank() OVER (ORDER BY return_ratio ASC) return_rank
+   , rank() OVER (ORDER BY currency_ratio ASC) currency_rank
+   FROM
+     (
+      SELECT
+        cs.cs_item_sk item
+      , (CAST(sum(COALESCE(cr.cr_return_quantity, 0)) AS DECIMAL(15,4)) / CAST(sum(COALESCE(cs.cs_quantity, 0)) AS DECIMAL(15,4))) return_ratio
+      , (CAST(sum(COALESCE(cr.cr_return_amount, 0)) AS DECIMAL(15,4)) / CAST(sum(COALESCE(cs.cs_net_paid, 0)) AS DECIMAL(15,4))) currency_ratio
+      FROM
+        (catalog_sales cs
+      LEFT JOIN catalog_returns cr ON (cs.cs_order_number = cr.cr_order_number)
+         AND (cs.cs_item_sk = cr.cr_item_sk))
+      , date_dim
+      WHERE (cr.cr_return_amount > 10000)
+         AND (cs.cs_net_profit > 1)
+         AND (cs.cs_net_paid > 0)
+         AND (cs.cs_quantity > 0)
+         AND (cs_sold_date_sk = d_date_sk)
+         AND (d_year = 2001)
+         AND (d_moy = 12)
+      GROUP BY cs.cs_item_sk
+   )  in_cat
+)  CATALOG
+WHERE (catalog.return_rank <= 10)
+   OR (catalog.currency_rank <= 10)
+UNION SELECT
+  'store' channel
+, store.item
+, store.return_ratio
+, store.return_rank
+, store.currency_rank
+FROM
+  (
+   SELECT
+     item
+   , return_ratio
+   , currency_ratio
+   , rank() OVER (ORDER BY return_ratio ASC) return_rank
+   , rank() OVER (ORDER BY currency_ratio ASC) currency_rank
+   FROM
+     (
+      SELECT
+        sts.ss_item_sk item
+      , (CAST(sum(COALESCE(sr.sr_return_quantity, 0)) AS DECIMAL(15,4)) / CAST(sum(COALESCE(sts.ss_quantity, 0)) AS DECIMAL(15,4))) return_ratio
+      , (CAST(sum(COALESCE(sr.sr_return_amt, 0)) AS DECIMAL(15,4)) / CAST(sum(COALESCE(sts.ss_net_paid, 0)) AS DECIMAL(15,4))) currency_ratio
+      FROM
+        (store_sales sts
+      LEFT JOIN store_returns sr ON (sts.ss_ticket_number = sr.sr_ticket_number)
+         AND (sts.ss_item_sk = sr.sr_item_sk))
+      , date_dim
+      WHERE (sr.sr_return_amt > 10000)
+         AND (sts.ss_net_profit > 1)
+         AND (sts.ss_net_paid > 0)
+         AND (sts.ss_quantity > 0)
+         AND (ss_sold_date_sk = d_date_sk)
+         AND (d_year = 2001)
+         AND (d_moy = 12)
+      GROUP BY sts.ss_item_sk
+   )  in_store
+)  store
+WHERE (store.return_rank <= 10)
+   OR (store.currency_rank <= 10)
+ORDER BY 1 ASC, 4 ASC, 5 ASC, 2 ASC
+LIMIT 100
+"""
+
+QUERIES["q50"] = """
+SELECT
+  s_store_name
+, s_company_id
+, s_street_number
+, s_street_name
+, s_street_type
+, s_suite_number
+, s_city
+, s_county
+, s_state
+, s_zip
+, sum((CASE WHEN ((sr_returned_date_sk - ss_sold_date_sk) <= 30) THEN 1 ELSE 0 END)) c_30_days
+, sum((CASE WHEN ((sr_returned_date_sk - ss_sold_date_sk) > 30)
+   AND ((sr_returned_date_sk - ss_sold_date_sk) <= 60) THEN 1 ELSE 0 END)) c_31_60_days
+, sum((CASE WHEN ((sr_returned_date_sk - ss_sold_date_sk) > 60)
+   AND ((sr_returned_date_sk - ss_sold_date_sk) <= 90) THEN 1 ELSE 0 END)) c_61_90_days
+, sum((CASE WHEN ((sr_returned_date_sk - ss_sold_date_sk) > 90)
+   AND ((sr_returned_date_sk - ss_sold_date_sk) <= 120) THEN 1 ELSE 0 END)) c_91_120_days
+, sum((CASE WHEN ((sr_returned_date_sk - ss_sold_date_sk) > 120) THEN 1 ELSE 0 END)) c_120_days
+FROM
+  store_sales
+, store_returns
+, store
+, date_dim d1
+, date_dim d2
+WHERE (d2.d_year = 2001)
+   AND (d2.d_moy = 8)
+   AND (ss_ticket_number = sr_ticket_number)
+   AND (ss_item_sk = sr_item_sk)
+   AND (ss_sold_date_sk = d1.d_date_sk)
+   AND (sr_returned_date_sk = d2.d_date_sk)
+   AND (ss_customer_sk = sr_customer_sk)
+   AND (ss_store_sk = s_store_sk)
+GROUP BY s_store_name, s_company_id, s_street_number, s_street_name, s_street_type, s_suite_number, s_city, s_county, s_state, s_zip
+ORDER BY s_store_name ASC, s_company_id ASC, s_street_number ASC, s_street_name ASC, s_street_type ASC, s_suite_number ASC, s_city ASC, s_county ASC, s_state ASC, s_zip ASC
+LIMIT 100
+"""
+
+QUERIES["q54"] = """
+WITH
+  my_customers AS (
+   SELECT DISTINCT
+     c_customer_sk
+   , c_current_addr_sk
+   FROM
+     (
+      SELECT
+        cs_sold_date_sk sold_date_sk
+      , cs_bill_customer_sk customer_sk
+      , cs_item_sk item_sk
+      FROM
+        catalog_sales
+UNION ALL       SELECT
+        ws_sold_date_sk sold_date_sk
+      , ws_bill_customer_sk customer_sk
+      , ws_item_sk item_sk
+      FROM
+        web_sales
+   )  cs_or_ws_sales
+   , item
+   , date_dim
+   , customer
+   WHERE (sold_date_sk = d_date_sk)
+      AND (item_sk = i_item_sk)
+      AND (i_category = 'Women')
+      AND (i_class = 'maternity')
+      AND (c_customer_sk = cs_or_ws_sales.customer_sk)
+      AND (d_moy = 12)
+      AND (d_year = 1998)
+) 
+, my_revenue AS (
+   SELECT
+     c_customer_sk
+   , sum(ss_ext_sales_price) revenue
+   FROM
+     my_customers
+   , store_sales
+   , customer_address
+   , store
+   , date_dim
+   WHERE (c_current_addr_sk = ca_address_sk)
+      AND (ca_county = s_county)
+      AND (ca_state = s_state)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (c_customer_sk = ss_customer_sk)
+      AND (d_month_seq BETWEEN (
+      SELECT DISTINCT (d_month_seq + 1)
+      FROM
+        date_dim
+      WHERE (d_year = 1998)
+         AND (d_moy = 12)
+   ) AND (
+      SELECT DISTINCT (d_month_seq + 3)
+      FROM
+        date_dim
+      WHERE (d_year = 1998)
+         AND (d_moy = 12)
+   ))
+   GROUP BY c_customer_sk
+) 
+, segments AS (
+   SELECT CAST((revenue / 50) AS INTEGER) segment
+   FROM
+     my_revenue
+) 
+SELECT
+  segment
+, count(*) num_customers
+, (segment * 50) segment_base
+FROM
+  segments
+GROUP BY segment
+ORDER BY segment ASC, num_customers ASC
+LIMIT 100
+"""
+
+QUERIES["q56"] = """
+WITH
+  ss AS (
+   SELECT
+     i_item_id
+   , sum(ss_ext_sales_price) total_sales
+   FROM
+     store_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_item_id IN (
+      SELECT i_item_id
+      FROM
+        item
+      WHERE (i_color IN ('slate'      , 'blanched'      , 'burnished'))
+   ))
+      AND (ss_item_sk = i_item_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year = 2001)
+      AND (d_moy = 2)
+      AND (ss_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_item_id
+) 
+, cs AS (
+   SELECT
+     i_item_id
+   , sum(cs_ext_sales_price) total_sales
+   FROM
+     catalog_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_item_id IN (
+      SELECT i_item_id
+      FROM
+        item
+      WHERE (i_color IN ('slate'      , 'blanched'      , 'burnished'))
+   ))
+      AND (cs_item_sk = i_item_sk)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (d_year = 2001)
+      AND (d_moy = 2)
+      AND (cs_bill_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_item_id
+) 
+, ws AS (
+   SELECT
+     i_item_id
+   , sum(ws_ext_sales_price) total_sales
+   FROM
+     web_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_item_id IN (
+      SELECT i_item_id
+      FROM
+        item
+      WHERE (i_color IN ('slate'      , 'blanched'      , 'burnished'))
+   ))
+      AND (ws_item_sk = i_item_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (d_year = 2001)
+      AND (d_moy = 2)
+      AND (ws_bill_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_item_id
+) 
+SELECT
+  i_item_id
+, sum(total_sales) total_sales
+FROM
+  (
+   SELECT *
+   FROM
+     ss
+UNION ALL    SELECT *
+   FROM
+     cs
+UNION ALL    SELECT *
+   FROM
+     ws
+)  tmp1
+GROUP BY i_item_id
+ORDER BY total_sales ASC, i_item_id ASC
+LIMIT 100
+"""
+
+QUERIES["q58"] = """
+WITH
+  ss_items AS (
+   SELECT
+     i_item_id item_id
+   , sum(ss_ext_sales_price) ss_item_rev
+   FROM
+     store_sales
+   , item
+   , date_dim
+   WHERE (ss_item_sk = i_item_sk)
+      AND (d_date IN (
+      SELECT d_date
+      FROM
+        date_dim
+      WHERE (d_week_seq = (
+            SELECT d_week_seq
+            FROM
+              date_dim
+            WHERE (d_date = CAST('2000-01-03' AS DATE))
+         ))
+   ))
+      AND (ss_sold_date_sk = d_date_sk)
+   GROUP BY i_item_id
+) 
+, cs_items AS (
+   SELECT
+     i_item_id item_id
+   , sum(cs_ext_sales_price) cs_item_rev
+   FROM
+     catalog_sales
+   , item
+   , date_dim
+   WHERE (cs_item_sk = i_item_sk)
+      AND (d_date IN (
+      SELECT d_date
+      FROM
+        date_dim
+      WHERE (d_week_seq = (
+            SELECT d_week_seq
+            FROM
+              date_dim
+            WHERE (d_date = CAST('2000-01-03' AS DATE))
+         ))
+   ))
+      AND (cs_sold_date_sk = d_date_sk)
+   GROUP BY i_item_id
+) 
+, ws_items AS (
+   SELECT
+     i_item_id item_id
+   , sum(ws_ext_sales_price) ws_item_rev
+   FROM
+     web_sales
+   , item
+   , date_dim
+   WHERE (ws_item_sk = i_item_sk)
+      AND (d_date IN (
+      SELECT d_date
+      FROM
+        date_dim
+      WHERE (d_week_seq = (
+            SELECT d_week_seq
+            FROM
+              date_dim
+            WHERE (d_date = CAST('2000-01-03' AS DATE))
+         ))
+   ))
+      AND (ws_sold_date_sk = d_date_sk)
+   GROUP BY i_item_id
+) 
+SELECT
+  ss_items.item_id
+, ss_item_rev
+, CAST((((ss_item_rev / ((CAST(ss_item_rev AS DECIMAL(16,7)) + cs_item_rev) + ws_item_rev)) / 3) * 100) AS DECIMAL(7,2)) ss_dev
+, cs_item_rev
+, CAST((((cs_item_rev / ((CAST(ss_item_rev AS DECIMAL(16,7)) + cs_item_rev) + ws_item_rev)) / 3) * 100) AS DECIMAL(7,2)) cs_dev
+, ws_item_rev
+, CAST((((ws_item_rev / ((CAST(ss_item_rev AS DECIMAL(16,7)) + cs_item_rev) + ws_item_rev)) / 3) * 100) AS DECIMAL(7,2)) ws_dev
+, (((ss_item_rev + cs_item_rev) + ws_item_rev) / 3) average
+FROM
+  ss_items
+, cs_items
+, ws_items
+WHERE (ss_items.item_id = cs_items.item_id)
+   AND (ss_items.item_id = ws_items.item_id)
+   AND (ss_item_rev BETWEEN (0.9 * cs_item_rev) AND (1.1 * cs_item_rev))
+   AND (ss_item_rev BETWEEN (0.9 * ws_item_rev) AND (1.1 * ws_item_rev))
+   AND (cs_item_rev BETWEEN (0.9 * ss_item_rev) AND (1.1 * ss_item_rev))
+   AND (cs_item_rev BETWEEN (0.9 * ws_item_rev) AND (1.1 * ws_item_rev))
+   AND (ws_item_rev BETWEEN (0.9 * ss_item_rev) AND (1.1 * ss_item_rev))
+   AND (ws_item_rev BETWEEN (0.9 * cs_item_rev) AND (1.1 * cs_item_rev))
+ORDER BY ss_items.item_id ASC, ss_item_rev ASC
+LIMIT 100
+"""
+
+QUERIES["q59"] = """
+WITH
+  wss AS (
+   SELECT
+     d_week_seq
+   , ss_store_sk
+   , sum((CASE WHEN (d_day_name = 'Sunday') THEN ss_sales_price ELSE null END)) sun_sales
+   , sum((CASE WHEN (d_day_name = 'Monday') THEN ss_sales_price ELSE null END)) mon_sales
+   , sum((CASE WHEN (d_day_name = 'Tuesday') THEN ss_sales_price ELSE null END)) tue_sales
+   , sum((CASE WHEN (d_day_name = 'Wednesday') THEN ss_sales_price ELSE null END)) wed_sales
+   , sum((CASE WHEN (d_day_name = 'Thursday') THEN ss_sales_price ELSE null END)) thu_sales
+   , sum((CASE WHEN (d_day_name = 'Friday') THEN ss_sales_price ELSE null END)) fri_sales
+   , sum((CASE WHEN (d_day_name = 'Saturday') THEN ss_sales_price ELSE null END)) sat_sales
+   FROM
+     store_sales
+   , date_dim
+   WHERE (d_date_sk = ss_sold_date_sk)
+   GROUP BY d_week_seq, ss_store_sk
+) 
+SELECT
+  s_store_name1
+, s_store_id1
+, d_week_seq1
+, (sun_sales1 / sun_sales2)
+, (mon_sales1 / mon_sales2)
+, (tue_sales1 / tue_sales2)
+, (wed_sales1 / wed_sales2)
+, (thu_sales1 / thu_sales2)
+, (fri_sales1 / fri_sales2)
+, (sat_sales1 / sat_sales2)
+FROM
+  (
+   SELECT
+     s_store_name s_store_name1
+   , wss.d_week_seq d_week_seq1
+   , s_store_id s_store_id1
+   , sun_sales sun_sales1
+   , mon_sales mon_sales1
+   , tue_sales tue_sales1
+   , wed_sales wed_sales1
+   , thu_sales thu_sales1
+   , fri_sales fri_sales1
+   , sat_sales sat_sales1
+   FROM
+     wss
+   , store
+   , date_dim d
+   WHERE (d.d_week_seq = wss.d_week_seq)
+      AND (ss_store_sk = s_store_sk)
+      AND (d_month_seq BETWEEN 1212 AND (1212 + 11))
+)  y
+, (
+   SELECT
+     s_store_name s_store_name2
+   , wss.d_week_seq d_week_seq2
+   , s_store_id s_store_id2
+   , sun_sales sun_sales2
+   , mon_sales mon_sales2
+   , tue_sales tue_sales2
+   , wed_sales wed_sales2
+   , thu_sales thu_sales2
+   , fri_sales fri_sales2
+   , sat_sales sat_sales2
+   FROM
+     wss
+   , store
+   , date_dim d
+   WHERE (d.d_week_seq = wss.d_week_seq)
+      AND (ss_store_sk = s_store_sk)
+      AND (d_month_seq BETWEEN (1212 + 12) AND (1212 + 23))
+)  x
+WHERE (s_store_id1 = s_store_id2)
+   AND (d_week_seq1 = (d_week_seq2 - 52))
+ORDER BY s_store_name1 ASC, s_store_id1 ASC, d_week_seq1 ASC
+LIMIT 100
+"""
+
+QUERIES["q60"] = """
+WITH
+  ss AS (
+   SELECT
+     i_item_id
+   , sum(ss_ext_sales_price) total_sales
+   FROM
+     store_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_item_id IN (
+      SELECT i_item_id
+      FROM
+        item
+      WHERE (i_category IN ('Music'))
+   ))
+      AND (ss_item_sk = i_item_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year = 1998)
+      AND (d_moy = 9)
+      AND (ss_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_item_id
+) 
+, cs AS (
+   SELECT
+     i_item_id
+   , sum(cs_ext_sales_price) total_sales
+   FROM
+     catalog_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_item_id IN (
+      SELECT i_item_id
+      FROM
+        item
+      WHERE (i_category IN ('Music'))
+   ))
+      AND (cs_item_sk = i_item_sk)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (d_year = 1998)
+      AND (d_moy = 9)
+      AND (cs_bill_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_item_id
+) 
+, ws AS (
+   SELECT
+     i_item_id
+   , sum(ws_ext_sales_price) total_sales
+   FROM
+     web_sales
+   , date_dim
+   , customer_address
+   , item
+   WHERE (i_item_id IN (
+      SELECT i_item_id
+      FROM
+        item
+      WHERE (i_category IN ('Music'))
+   ))
+      AND (ws_item_sk = i_item_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (d_year = 1998)
+      AND (d_moy = 9)
+      AND (ws_bill_addr_sk = ca_address_sk)
+      AND (ca_gmt_offset = -5)
+   GROUP BY i_item_id
+) 
+SELECT
+  i_item_id
+, sum(total_sales) total_sales
+FROM
+  (
+   SELECT *
+   FROM
+     ss
+UNION ALL    SELECT *
+   FROM
+     cs
+UNION ALL    SELECT *
+   FROM
+     ws
+)  tmp1
+GROUP BY i_item_id
+ORDER BY i_item_id ASC, total_sales ASC
+LIMIT 100
+"""
+
+QUERIES["q61"] = """
+SELECT
+  promotions
+, total
+, ((CAST(promotions AS DECIMAL(15,4)) / CAST(total AS DECIMAL(15,4))) * 100)
+FROM
+  (
+   SELECT sum(ss_ext_sales_price) promotions
+   FROM
+     store_sales
+   , store
+   , promotion
+   , date_dim
+   , customer
+   , customer_address
+   , item
+   WHERE (ss_sold_date_sk = d_date_sk)
+      AND (ss_store_sk = s_store_sk)
+      AND (ss_promo_sk = p_promo_sk)
+      AND (ss_customer_sk = c_customer_sk)
+      AND (ca_address_sk = c_current_addr_sk)
+      AND (ss_item_sk = i_item_sk)
+      AND (ca_gmt_offset = -5)
+      AND (i_category = 'Jewelry')
+      AND ((p_channel_dmail = 'Y')
+         OR (p_channel_email = 'Y')
+         OR (p_channel_tv = 'Y'))
+      AND (s_gmt_offset = -5)
+      AND (d_year = 1998)
+      AND (d_moy = 11)
+)  promotional_sales
+, (
+   SELECT sum(ss_ext_sales_price) total
+   FROM
+     store_sales
+   , store
+   , date_dim
+   , customer
+   , customer_address
+   , item
+   WHERE (ss_sold_date_sk = d_date_sk)
+      AND (ss_store_sk = s_store_sk)
+      AND (ss_customer_sk = c_customer_sk)
+      AND (ca_address_sk = c_current_addr_sk)
+      AND (ss_item_sk = i_item_sk)
+      AND (ca_gmt_offset = -5)
+      AND (i_category = 'Jewelry')
+      AND (s_gmt_offset = -5)
+      AND (d_year = 1998)
+      AND (d_moy = 11)
+)  all_sales
+ORDER BY promotions ASC, total ASC
+LIMIT 100
+"""
+
+QUERIES["q64"] = """
+WITH
+  cs_ui AS (
+   SELECT
+     cs_item_sk
+   , sum(cs_ext_list_price) sale
+   , sum(((cr_refunded_cash + cr_reversed_charge) + cr_store_credit)) refund
+   FROM
+     catalog_sales
+   , catalog_returns
+   WHERE (cs_item_sk = cr_item_sk)
+      AND (cs_order_number = cr_order_number)
+   GROUP BY cs_item_sk
+   HAVING (sum(cs_ext_list_price) > (2 * sum(((cr_refunded_cash + cr_reversed_charge) + cr_store_credit))))
+) 
+, cross_sales AS (
+   SELECT
+     i_product_name product_name
+   , i_item_sk item_sk
+   , s_store_name store_name
+   , s_zip store_zip
+   , ad1.ca_street_number b_street_number
+   , ad1.ca_street_name b_street_name
+   , ad1.ca_city b_city
+   , ad1.ca_zip b_zip
+   , ad2.ca_street_number c_street_number
+   , ad2.ca_street_name c_street_name
+   , ad2.ca_city c_city
+   , ad2.ca_zip c_zip
+   , d1.d_year syear
+   , d2.d_year fsyear
+   , d3.d_year s2year
+   , count(*) cnt
+   , sum(ss_wholesale_cost) s1
+   , sum(ss_list_price) s2
+   , sum(ss_coupon_amt) s3
+   FROM
+     store_sales
+   , store_returns
+   , cs_ui
+   , date_dim d1
+   , date_dim d2
+   , date_dim d3
+   , store
+   , customer
+   , customer_demographics cd1
+   , customer_demographics cd2
+   , promotion
+   , household_demographics hd1
+   , household_demographics hd2
+   , customer_address ad1
+   , customer_address ad2
+   , income_band ib1
+   , income_band ib2
+   , item
+   WHERE (ss_store_sk = s_store_sk)
+      AND (ss_sold_date_sk = d1.d_date_sk)
+      AND (ss_customer_sk = c_customer_sk)
+      AND (ss_cdemo_sk = cd1.cd_demo_sk)
+      AND (ss_hdemo_sk = hd1.hd_demo_sk)
+      AND (ss_addr_sk = ad1.ca_address_sk)
+      AND (ss_item_sk = i_item_sk)
+      AND (ss_item_sk = sr_item_sk)
+      AND (ss_ticket_number = sr_ticket_number)
+      AND (ss_item_sk = cs_ui.cs_item_sk)
+      AND (c_current_cdemo_sk = cd2.cd_demo_sk)
+      AND (c_current_hdemo_sk = hd2.hd_demo_sk)
+      AND (c_current_addr_sk = ad2.ca_address_sk)
+      AND (c_first_sales_date_sk = d2.d_date_sk)
+      AND (c_first_shipto_date_sk = d3.d_date_sk)
+      AND (ss_promo_sk = p_promo_sk)
+      AND (hd1.hd_income_band_sk = ib1.ib_income_band_sk)
+      AND (hd2.hd_income_band_sk = ib2.ib_income_band_sk)
+      AND (cd1.cd_marital_status <> cd2.cd_marital_status)
+      AND (i_color IN ('purple'   , 'burlywood'   , 'indian'   , 'spring'   , 'floral'   , 'medium'))
+      AND (i_current_price BETWEEN 64 AND (64 + 10))
+      AND (i_current_price BETWEEN (64 + 1) AND (64 + 15))
+   GROUP BY i_product_name, i_item_sk, s_store_name, s_zip, ad1.ca_street_number, ad1.ca_street_name, ad1.ca_city, ad1.ca_zip, ad2.ca_street_number, ad2.ca_street_name, ad2.ca_city, ad2.ca_zip, d1.d_year, d2.d_year, d3.d_year
+) 
+SELECT
+  cs1.product_name
+, cs1.store_name
+, cs1.store_zip
+, cs1.b_street_number
+, cs1.b_street_name
+, cs1.b_city
+, cs1.b_zip
+, cs1.c_street_number
+, cs1.c_street_name
+, cs1.c_city
+, cs1.c_zip
+, cs1.syear
+, cs1.cnt
+, cs1.s1 s11
+, cs1.s2 s21
+, cs1.s3 s31
+, cs2.s1 s12
+, cs2.s2 s22
+, cs2.s3 s32
+, cs2.syear
+, cs2.cnt
+FROM
+  cross_sales cs1
+, cross_sales cs2
+WHERE (cs1.item_sk = cs2.item_sk)
+   AND (cs1.syear = 1999)
+   AND (cs2.syear = (1999 + 1))
+   AND (cs2.cnt <= cs1.cnt)
+   AND (cs1.store_name = cs2.store_name)
+   AND (cs1.store_zip = cs2.store_zip)
+ORDER BY cs1.product_name ASC, cs1.store_name ASC, cs2.cnt ASC, 14, 15, 16, 17, 18
+"""
+
+QUERIES["q66"] = """
+SELECT
+  w_warehouse_name
+, w_warehouse_sq_ft
+, w_city
+, w_county
+, w_state
+, w_country
+, ship_carriers
+, year_
+, sum(jan_sales) jan_sales
+, sum(feb_sales) feb_sales
+, sum(mar_sales) mar_sales
+, sum(apr_sales) apr_sales
+, sum(may_sales) may_sales
+, sum(jun_sales) jun_sales
+, sum(jul_sales) jul_sales
+, sum(aug_sales) aug_sales
+, sum(sep_sales) sep_sales
+, sum(oct_sales) oct_sales
+, sum(nov_sales) nov_sales
+, sum(dec_sales) dec_sales
+, sum((jan_sales / w_warehouse_sq_ft)) jan_sales_per_sq_foot
+, sum((feb_sales / w_warehouse_sq_ft)) feb_sales_per_sq_foot
+, sum((mar_sales / w_warehouse_sq_ft)) mar_sales_per_sq_foot
+, sum((apr_sales / w_warehouse_sq_ft)) apr_sales_per_sq_foot
+, sum((may_sales / w_warehouse_sq_ft)) may_sales_per_sq_foot
+, sum((jun_sales / w_warehouse_sq_ft)) jun_sales_per_sq_foot
+, sum((jul_sales / w_warehouse_sq_ft)) jul_sales_per_sq_foot
+, sum((aug_sales / w_warehouse_sq_ft)) aug_sales_per_sq_foot
+, sum((sep_sales / w_warehouse_sq_ft)) sep_sales_per_sq_foot
+, sum((oct_sales / w_warehouse_sq_ft)) oct_sales_per_sq_foot
+, sum((nov_sales / w_warehouse_sq_ft)) nov_sales_per_sq_foot
+, sum((dec_sales / w_warehouse_sq_ft)) dec_sales_per_sq_foot
+, sum(jan_net) jan_net
+, sum(feb_net) feb_net
+, sum(mar_net) mar_net
+, sum(apr_net) apr_net
+, sum(may_net) may_net
+, sum(jun_net) jun_net
+, sum(jul_net) jul_net
+, sum(aug_net) aug_net
+, sum(sep_net) sep_net
+, sum(oct_net) oct_net
+, sum(nov_net) nov_net
+, sum(dec_net) dec_net
+FROM
+(
+      SELECT
+        w_warehouse_name
+      , w_warehouse_sq_ft
+      , w_city
+      , w_county
+      , w_state
+      , w_country
+      , concat(concat('DHL', ','), 'BARIAN') ship_carriers
+      , d_year year_
+      , sum((CASE WHEN (d_moy = 1) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) jan_sales
+      , sum((CASE WHEN (d_moy = 2) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) feb_sales
+      , sum((CASE WHEN (d_moy = 3) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) mar_sales
+      , sum((CASE WHEN (d_moy = 4) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) apr_sales
+      , sum((CASE WHEN (d_moy = 5) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) may_sales
+      , sum((CASE WHEN (d_moy = 6) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) jun_sales
+      , sum((CASE WHEN (d_moy = 7) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) jul_sales
+      , sum((CASE WHEN (d_moy = 8) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) aug_sales
+      , sum((CASE WHEN (d_moy = 9) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) sep_sales
+      , sum((CASE WHEN (d_moy = 10) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) oct_sales
+      , sum((CASE WHEN (d_moy = 11) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) nov_sales
+      , sum((CASE WHEN (d_moy = 12) THEN (ws_ext_sales_price * ws_quantity) ELSE 0 END)) dec_sales
+      , sum((CASE WHEN (d_moy = 1) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) jan_net
+      , sum((CASE WHEN (d_moy = 2) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) feb_net
+      , sum((CASE WHEN (d_moy = 3) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) mar_net
+      , sum((CASE WHEN (d_moy = 4) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) apr_net
+      , sum((CASE WHEN (d_moy = 5) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) may_net
+      , sum((CASE WHEN (d_moy = 6) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) jun_net
+      , sum((CASE WHEN (d_moy = 7) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) jul_net
+      , sum((CASE WHEN (d_moy = 8) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) aug_net
+      , sum((CASE WHEN (d_moy = 9) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) sep_net
+      , sum((CASE WHEN (d_moy = 10) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) oct_net
+      , sum((CASE WHEN (d_moy = 11) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) nov_net
+      , sum((CASE WHEN (d_moy = 12) THEN (ws_net_paid * ws_quantity) ELSE 0 END)) dec_net
+      FROM
+        web_sales
+      , warehouse
+      , date_dim
+      , time_dim
+      , ship_mode
+      WHERE (ws_warehouse_sk = w_warehouse_sk)
+         AND (ws_sold_date_sk = d_date_sk)
+         AND (ws_sold_time_sk = t_time_sk)
+         AND (ws_ship_mode_sk = sm_ship_mode_sk)
+         AND (d_year = 2001)
+         AND (t_time BETWEEN 30838 AND (30838 + 28800))
+         AND (sm_carrier IN ('DHL'      , 'BARIAN'))
+      GROUP BY w_warehouse_name, w_warehouse_sq_ft, w_city, w_county, w_state, w_country, d_year
+   UNION ALL
+      SELECT
+        w_warehouse_name
+      , w_warehouse_sq_ft
+      , w_city
+      , w_county
+      , w_state
+      , w_country
+      , concat(concat('DHL', ','), 'BARIAN') ship_carriers
+      , d_year year_
+      , sum((CASE WHEN (d_moy = 1) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) jan_sales
+      , sum((CASE WHEN (d_moy = 2) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) feb_sales
+      , sum((CASE WHEN (d_moy = 3) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) mar_sales
+      , sum((CASE WHEN (d_moy = 4) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) apr_sales
+      , sum((CASE WHEN (d_moy = 5) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) may_sales
+      , sum((CASE WHEN (d_moy = 6) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) jun_sales
+      , sum((CASE WHEN (d_moy = 7) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) jul_sales
+      , sum((CASE WHEN (d_moy = 8) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) aug_sales
+      , sum((CASE WHEN (d_moy = 9) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) sep_sales
+      , sum((CASE WHEN (d_moy = 10) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) oct_sales
+      , sum((CASE WHEN (d_moy = 11) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) nov_sales
+      , sum((CASE WHEN (d_moy = 12) THEN (cs_sales_price * cs_quantity) ELSE 0 END)) dec_sales
+      , sum((CASE WHEN (d_moy = 1) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) jan_net
+      , sum((CASE WHEN (d_moy = 2) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) feb_net
+      , sum((CASE WHEN (d_moy = 3) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) mar_net
+      , sum((CASE WHEN (d_moy = 4) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) apr_net
+      , sum((CASE WHEN (d_moy = 5) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) may_net
+      , sum((CASE WHEN (d_moy = 6) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) jun_net
+      , sum((CASE WHEN (d_moy = 7) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) jul_net
+      , sum((CASE WHEN (d_moy = 8) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) aug_net
+      , sum((CASE WHEN (d_moy = 9) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) sep_net
+      , sum((CASE WHEN (d_moy = 10) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) oct_net
+      , sum((CASE WHEN (d_moy = 11) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) nov_net
+      , sum((CASE WHEN (d_moy = 12) THEN (cs_net_paid_inc_tax * cs_quantity) ELSE 0 END)) dec_net
+      FROM
+        catalog_sales
+      , warehouse
+      , date_dim
+      , time_dim
+      , ship_mode
+      WHERE (cs_warehouse_sk = w_warehouse_sk)
+         AND (cs_sold_date_sk = d_date_sk)
+         AND (cs_sold_time_sk = t_time_sk)
+         AND (cs_ship_mode_sk = sm_ship_mode_sk)
+         AND (d_year = 2001)
+         AND (t_time BETWEEN 30838 AND (30838 + 28800))
+         AND (sm_carrier IN ('DHL'      , 'BARIAN'))
+      GROUP BY w_warehouse_name, w_warehouse_sq_ft, w_city, w_county, w_state, w_country, d_year
+   )  x
+GROUP BY w_warehouse_name, w_warehouse_sq_ft, w_city, w_county, w_state, w_country, ship_carriers, year_
+ORDER BY w_warehouse_name ASC
+LIMIT 100
+"""
+
+QUERIES["q69"] = """
+SELECT
+  cd_gender
+, cd_marital_status
+, cd_education_status
+, count(*) cnt1
+, cd_purchase_estimate
+, count(*) cnt2
+, cd_credit_rating
+, count(*) cnt3
+FROM
+  customer c
+, customer_address ca
+, customer_demographics
+WHERE (c.c_current_addr_sk = ca.ca_address_sk)
+   AND (ca_state IN ('KY', 'GA', 'NM'))
+   AND (cd_demo_sk = c.c_current_cdemo_sk)
+   AND (EXISTS (
+   SELECT *
+   FROM
+     store_sales
+   , date_dim
+   WHERE (c.c_customer_sk = ss_customer_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year = 2001)
+      AND (d_moy BETWEEN 4 AND (4 + 2))
+))
+   AND (NOT (EXISTS (
+   SELECT *
+   FROM
+     web_sales
+   , date_dim
+   WHERE (c.c_customer_sk = ws_bill_customer_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (d_year = 2001)
+      AND (d_moy BETWEEN 4 AND (4 + 2))
+)))
+   AND (NOT (EXISTS (
+   SELECT *
+   FROM
+     catalog_sales
+   , date_dim
+   WHERE (c.c_customer_sk = cs_ship_customer_sk)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (d_year = 2001)
+      AND (d_moy BETWEEN 4 AND (4 + 2))
+)))
+GROUP BY cd_gender, cd_marital_status, cd_education_status, cd_purchase_estimate, cd_credit_rating
+ORDER BY cd_gender ASC, cd_marital_status ASC, cd_education_status ASC, cd_purchase_estimate ASC, cd_credit_rating ASC
+LIMIT 100
+"""
+
+QUERIES["q71"] = """
+SELECT
+  i_brand_id brand_id
+, i_brand brand
+, t_hour
+, t_minute
+, sum(ext_price) ext_price
+FROM
+  item
+, (
+   SELECT
+     ws_ext_sales_price ext_price
+   , ws_sold_date_sk sold_date_sk
+   , ws_item_sk sold_item_sk
+   , ws_sold_time_sk time_sk
+   FROM
+     web_sales
+   , date_dim
+   WHERE (d_date_sk = ws_sold_date_sk)
+      AND (d_moy = 11)
+      AND (d_year = 1999)
+UNION ALL    SELECT
+     cs_ext_sales_price ext_price
+   , cs_sold_date_sk sold_date_sk
+   , cs_item_sk sold_item_sk
+   , cs_sold_time_sk time_sk
+   FROM
+     catalog_sales
+   , date_dim
+   WHERE (d_date_sk = cs_sold_date_sk)
+      AND (d_moy = 11)
+      AND (d_year = 1999)
+UNION ALL    SELECT
+     ss_ext_sales_price ext_price
+   , ss_sold_date_sk sold_date_sk
+   , ss_item_sk sold_item_sk
+   , ss_sold_time_sk time_sk
+   FROM
+     store_sales
+   , date_dim
+   WHERE (d_date_sk = ss_sold_date_sk)
+      AND (d_moy = 11)
+      AND (d_year = 1999)
+)  tmp
+, time_dim
+WHERE (sold_item_sk = i_item_sk)
+   AND (i_manager_id = 1)
+   AND (time_sk = t_time_sk)
+   AND ((t_meal_time = 'breakfast')
+      OR (t_meal_time = 'dinner'))
+GROUP BY i_brand, i_brand_id, t_hour, t_minute
+ORDER BY ext_price DESC, i_brand_id ASC,
+   -- additional columns to assure results stability for larger scale factors; this is a deviation from TPC-DS specification
+   t_hour ASC, t_minute ASC
+"""
+
+QUERIES["q76"] = """
+SELECT
+  channel
+, col_name
+, d_year
+, d_qoy
+, i_category
+, count(*) sales_cnt
+, sum(ext_sales_price) sales_amt
+FROM
+  (
+   SELECT
+     'store' channel
+   , 'ss_store_sk' col_name
+   , d_year
+   , d_qoy
+   , i_category
+   , ss_ext_sales_price ext_sales_price
+   FROM
+     store_sales
+   , item
+   , date_dim
+   WHERE (ss_store_sk IS NULL)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (ss_item_sk = i_item_sk)
+UNION ALL    SELECT
+     'web' channel
+   , 'ws_ship_customer_sk' col_name
+   , d_year
+   , d_qoy
+   , i_category
+   , ws_ext_sales_price ext_sales_price
+   FROM
+     web_sales
+   , item
+   , date_dim
+   WHERE (ws_ship_customer_sk IS NULL)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (ws_item_sk = i_item_sk)
+UNION ALL    SELECT
+     'catalog' channel
+   , 'cs_ship_addr_sk' col_name
+   , d_year
+   , d_qoy
+   , i_category
+   , cs_ext_sales_price ext_sales_price
+   FROM
+     catalog_sales
+   , item
+   , date_dim
+   WHERE (cs_ship_addr_sk IS NULL)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (cs_item_sk = i_item_sk)
+)  foo
+GROUP BY channel, col_name, d_year, d_qoy, i_category
+ORDER BY channel ASC, col_name ASC, d_year ASC, d_qoy ASC, i_category ASC
+LIMIT 100
+"""
+
+QUERIES["q81"] = """
+WITH
+  customer_total_return AS (
+   SELECT
+     cr_returning_customer_sk ctr_customer_sk
+   , ca_state ctr_state
+   , sum(cr_return_amt_inc_tax) ctr_total_return
+   FROM
+     catalog_returns
+   , date_dim
+   , customer_address
+   WHERE (cr_returned_date_sk = d_date_sk)
+      AND (d_year = 2000)
+      AND (cr_returning_addr_sk = ca_address_sk)
+   GROUP BY cr_returning_customer_sk, ca_state
+) 
+SELECT
+  c_customer_id
+, c_salutation
+, c_first_name
+, c_last_name
+, ca_street_number
+, ca_street_name
+, ca_street_type
+, ca_suite_number
+, ca_city
+, ca_county
+, ca_state
+, ca_zip
+, ca_country
+, ca_gmt_offset
+, ca_location_type
+, ctr_total_return
+FROM
+  customer_total_return ctr1
+, customer_address
+, customer
+WHERE (ctr1.ctr_total_return > (
+      SELECT (avg(ctr_total_return) * 1.2)
+      FROM
+        customer_total_return ctr2
+      WHERE (ctr1.ctr_state = ctr2.ctr_state)
+   ))
+   AND (ca_address_sk = c_current_addr_sk)
+   AND (ca_state = 'GA')
+   AND (ctr1.ctr_customer_sk = c_customer_sk)
+ORDER BY c_customer_id ASC, c_salutation ASC, c_first_name ASC, c_last_name ASC, ca_street_number ASC, ca_street_name ASC, ca_street_type ASC, ca_suite_number ASC, ca_city ASC, ca_county ASC, ca_state ASC, ca_zip ASC, ca_country ASC, ca_gmt_offset ASC, ca_location_type ASC, ctr_total_return ASC
+LIMIT 100
+"""
+
+QUERIES["q83"] = """
+WITH
+  sr_items AS (
+   SELECT
+     i_item_id item_id
+   , sum(sr_return_quantity) sr_item_qty
+   FROM
+     store_returns
+   , item
+   , date_dim
+   WHERE (sr_item_sk = i_item_sk)
+      AND (d_date IN (
+      SELECT d_date
+      FROM
+        date_dim
+      WHERE (d_week_seq IN (
+         SELECT d_week_seq
+         FROM
+           date_dim
+         WHERE (d_date IN (CAST('2000-06-30' AS DATE)         , CAST('2000-09-27' AS DATE)         , CAST('2000-11-17' AS DATE)))
+      ))
+   ))
+      AND (sr_returned_date_sk = d_date_sk)
+   GROUP BY i_item_id
+) 
+, cr_items AS (
+   SELECT
+     i_item_id item_id
+   , sum(cr_return_quantity) cr_item_qty
+   FROM
+     catalog_returns
+   , item
+   , date_dim
+   WHERE (cr_item_sk = i_item_sk)
+      AND (d_date IN (
+      SELECT d_date
+      FROM
+        date_dim
+      WHERE (d_week_seq IN (
+         SELECT d_week_seq
+         FROM
+           date_dim
+         WHERE (d_date IN (CAST('2000-06-30' AS DATE)         , CAST('2000-09-27' AS DATE)         , CAST('2000-11-17' AS DATE)))
+      ))
+   ))
+      AND (cr_returned_date_sk = d_date_sk)
+   GROUP BY i_item_id
+) 
+, wr_items AS (
+   SELECT
+     i_item_id item_id
+   , sum(wr_return_quantity) wr_item_qty
+   FROM
+     web_returns
+   , item
+   , date_dim
+   WHERE (wr_item_sk = i_item_sk)
+      AND (d_date IN (
+      SELECT d_date
+      FROM
+        date_dim
+      WHERE (d_week_seq IN (
+         SELECT d_week_seq
+         FROM
+           date_dim
+         WHERE (d_date IN (CAST('2000-06-30' AS DATE)         , CAST('2000-09-27' AS DATE)         , CAST('2000-11-17' AS DATE)))
+      ))
+   ))
+      AND (wr_returned_date_sk = d_date_sk)
+   GROUP BY i_item_id
+) 
+SELECT
+  sr_items.item_id
+, sr_item_qty
+, CAST((((sr_item_qty / ((CAST(sr_item_qty AS DECIMAL(9,4)) + cr_item_qty) + wr_item_qty)) / 3.0) * 100) AS DECIMAL(7,2)) sr_dev
+, cr_item_qty
+, CAST((((cr_item_qty / ((CAST(sr_item_qty AS DECIMAL(9,4)) + cr_item_qty) + wr_item_qty)) / 3.0) * 100) AS DECIMAL(7,2)) cr_dev
+, wr_item_qty
+, CAST((((wr_item_qty / ((CAST(sr_item_qty AS DECIMAL(9,4)) + cr_item_qty) + wr_item_qty)) / 3.0) * 100) AS DECIMAL(7,2)) wr_dev
+, (((sr_item_qty + cr_item_qty) + wr_item_qty) / 3.00) average
+FROM
+  sr_items
+, cr_items
+, wr_items
+WHERE (sr_items.item_id = cr_items.item_id)
+   AND (sr_items.item_id = wr_items.item_id)
+ORDER BY sr_items.item_id ASC, sr_item_qty ASC
+LIMIT 100
+"""
+
+QUERIES["q85"] = """
+SELECT
+  substr(r_reason_desc, 1, 20)
+, avg(ws_quantity)
+, avg(wr_refunded_cash)
+, avg(wr_fee)
+FROM
+  web_sales
+, web_returns
+, web_page
+, customer_demographics cd1
+, customer_demographics cd2
+, customer_address
+, date_dim
+, reason
+WHERE (ws_web_page_sk = wp_web_page_sk)
+   AND (ws_item_sk = wr_item_sk)
+   AND (ws_order_number = wr_order_number)
+   AND (ws_sold_date_sk = d_date_sk)
+   AND (d_year = 2000)
+   AND (cd1.cd_demo_sk = wr_refunded_cdemo_sk)
+   AND (cd2.cd_demo_sk = wr_returning_cdemo_sk)
+   AND (ca_address_sk = wr_refunded_addr_sk)
+   AND (r_reason_sk = wr_reason_sk)
+   AND (((cd1.cd_marital_status = 'M')
+         AND (cd1.cd_marital_status = cd2.cd_marital_status)
+         AND (cd1.cd_education_status = 'Advanced Degree')
+         AND (cd1.cd_education_status = cd2.cd_education_status)
+         AND (ws_sales_price BETWEEN 100.00 AND 150.00))
+      OR ((cd1.cd_marital_status = 'S')
+         AND (cd1.cd_marital_status = cd2.cd_marital_status)
+         AND (cd1.cd_education_status = 'College')
+         AND (cd1.cd_education_status = cd2.cd_education_status)
+         AND (ws_sales_price BETWEEN 50.00 AND 100.00))
+      OR ((cd1.cd_marital_status = 'W')
+         AND (cd1.cd_marital_status = cd2.cd_marital_status)
+         AND (cd1.cd_education_status = '2 yr Degree')
+         AND (cd1.cd_education_status = cd2.cd_education_status)
+         AND (ws_sales_price BETWEEN 150.00 AND 200.00)))
+   AND (((ca_country = 'United States')
+         AND (ca_state IN ('IN'      , 'OH'      , 'NJ'))
+         AND (ws_net_profit BETWEEN 100 AND 200))
+      OR ((ca_country = 'United States')
+         AND (ca_state IN ('WI'      , 'CT'      , 'KY'))
+         AND (ws_net_profit BETWEEN 150 AND 300))
+      OR ((ca_country = 'United States')
+         AND (ca_state IN ('LA'      , 'IA'      , 'AR'))
+         AND (ws_net_profit BETWEEN 50 AND 250)))
+GROUP BY r_reason_desc
+ORDER BY substr(r_reason_desc, 1, 20) ASC, avg(ws_quantity) ASC, avg(wr_refunded_cash) ASC, avg(wr_fee) ASC
+LIMIT 100
+"""
+
+QUERIES["q90"] = """
+SELECT (CAST(amc AS DECIMAL(15,4)) / CAST(pmc AS DECIMAL(15,4))) am_pm_ratio
+FROM
+  (
+   SELECT count(*) amc
+   FROM
+     web_sales
+   , household_demographics
+   , time_dim
+   , web_page
+   WHERE (ws_sold_time_sk = time_dim.t_time_sk)
+      AND (ws_ship_hdemo_sk = household_demographics.hd_demo_sk)
+      AND (ws_web_page_sk = web_page.wp_web_page_sk)
+      AND (time_dim.t_hour BETWEEN 8 AND (8 + 1))
+      AND (household_demographics.hd_dep_count = 6)
+      AND (web_page.wp_char_count BETWEEN 5000 AND 5200)
+)  at
+, (
+   SELECT count(*) pmc
+   FROM
+     web_sales
+   , household_demographics
+   , time_dim
+   , web_page
+   WHERE (ws_sold_time_sk = time_dim.t_time_sk)
+      AND (ws_ship_hdemo_sk = household_demographics.hd_demo_sk)
+      AND (ws_web_page_sk = web_page.wp_web_page_sk)
+      AND (time_dim.t_hour BETWEEN 19 AND (19 + 1))
+      AND (household_demographics.hd_dep_count = 6)
+      AND (web_page.wp_char_count BETWEEN 5000 AND 5200)
+)  pt
+ORDER BY am_pm_ratio ASC
+LIMIT 100
+"""
+
+QUERIES["q91"] = """
+SELECT
+  cc_call_center_id Call_Center
+, cc_name Call_Center_Name
+, cc_manager Manager
+, sum(cr_net_loss) Returns_Loss
+FROM
+  call_center
+, catalog_returns
+, date_dim
+, customer
+, customer_address
+, customer_demographics
+, household_demographics
+WHERE (cr_call_center_sk = cc_call_center_sk)
+   AND (cr_returned_date_sk = d_date_sk)
+   AND (cr_returning_customer_sk = c_customer_sk)
+   AND (cd_demo_sk = c_current_cdemo_sk)
+   AND (hd_demo_sk = c_current_hdemo_sk)
+   AND (ca_address_sk = c_current_addr_sk)
+   AND (d_year = 1998)
+   AND (d_moy = 11)
+   AND (((cd_marital_status = 'M')
+         AND (cd_education_status = 'Unknown'))
+      OR ((cd_marital_status = 'W')
+         AND (cd_education_status = 'Advanced Degree')))
+   AND (hd_buy_potential LIKE 'Unknown%')
+   AND (ca_gmt_offset = -7)
+GROUP BY cc_call_center_id, cc_name, cc_manager, cd_marital_status, cd_education_status
+ORDER BY sum(cr_net_loss) DESC
+"""
+
+QUERIES["q92"] = """
+SELECT sum(ws_ext_discount_amt) Excess_Discount_Amount
+FROM
+  web_sales
+, item
+, date_dim
+WHERE (i_manufact_id = 350)
+   AND (i_item_sk = ws_item_sk)
+   AND (d_date BETWEEN CAST('2000-01-27' AS DATE) AND (CAST('2000-01-27' AS DATE) + INTERVAL  '90' DAY))
+   AND (d_date_sk = ws_sold_date_sk)
+   AND (ws_ext_discount_amt > (
+      SELECT (1.3 * avg(ws_ext_discount_amt))
+      FROM
+        web_sales
+      , date_dim
+      WHERE (ws_item_sk = i_item_sk)
+         AND (d_date BETWEEN CAST('2000-01-27' AS DATE) AND (CAST('2000-01-27' AS DATE) + INTERVAL  '90' DAY))
+         AND (d_date_sk = ws_sold_date_sk)
+   ))
+ORDER BY sum(ws_ext_discount_amt) ASC
+LIMIT 100
+"""
+
+QUERIES["q94"] = """
+SELECT
+  count(DISTINCT ws_order_number) order_count
+, sum(ws_ext_ship_cost) total_shipping_cost
+, sum(ws_net_profit) total_net_profit
+FROM
+  web_sales ws1
+, date_dim
+, customer_address
+, web_site
+WHERE (d_date BETWEEN CAST('1999-2-01' AS DATE) AND (CAST('1999-2-01' AS DATE) + INTERVAL  '60' DAY))
+   AND (ws1.ws_ship_date_sk = d_date_sk)
+   AND (ws1.ws_ship_addr_sk = ca_address_sk)
+   AND (ca_state = 'IL')
+   AND (ws1.ws_web_site_sk = web_site_sk)
+   AND (web_company_name = 'pri')
+   AND (EXISTS (
+   SELECT *
+   FROM
+     web_sales ws2
+   WHERE (ws1.ws_order_number = ws2.ws_order_number)
+      AND (ws1.ws_warehouse_sk <> ws2.ws_warehouse_sk)
+))
+   AND (NOT (EXISTS (
+   SELECT *
+   FROM
+     web_returns wr1
+   WHERE (ws1.ws_order_number = wr1.wr_order_number)
+)))
+ORDER BY count(DISTINCT ws_order_number) ASC
+LIMIT 100
+"""
+
+# q47: moving average restated in DOUBLE and the sort key
+# rounded with full-column tie-breaks so the LIMIT boundary is
+# deterministic across engines (decimal-avg scale rounding vs
+# float would otherwise flip near-tie orderings)
+QUERIES["q47"] = """
+WITH
+  v1 AS (
+   SELECT
+     i_category
+   , i_brand
+   , s_store_name
+   , s_company_name
+   , d_year
+   , d_moy
+   , sum(ss_sales_price) sum_sales
+   , avg(cast(sum(ss_sales_price) as double)) OVER (PARTITION BY i_category, i_brand, s_store_name, s_company_name, d_year) avg_monthly_sales
+   , rank() OVER (PARTITION BY i_category, i_brand, s_store_name, s_company_name ORDER BY d_year ASC, d_moy ASC) rn
+   FROM
+     item
+   , store_sales
+   , date_dim
+   , store
+   WHERE (ss_item_sk = i_item_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (ss_store_sk = s_store_sk)
+      AND ((d_year = 1999)
+         OR ((d_year = (1999 - 1))
+            AND (d_moy = 12))
+         OR ((d_year = (1999 + 1))
+            AND (d_moy = 1)))
+   GROUP BY i_category, i_brand, s_store_name, s_company_name, d_year, d_moy
+) 
+, v2 AS (
+   SELECT
+     v1.i_category
+   , v1.i_brand
+   , v1.s_store_name
+   , v1.s_company_name
+   , v1.d_year
+   , v1.d_moy
+   , v1.avg_monthly_sales
+   , v1.sum_sales
+   , v1_lag.sum_sales psum
+   , v1_lead.sum_sales nsum
+   FROM
+     v1
+   , v1 v1_lag
+   , v1 v1_lead
+   WHERE (v1.i_category = v1_lag.i_category)
+      AND (v1.i_category = v1_lead.i_category)
+      AND (v1.i_brand = v1_lag.i_brand)
+      AND (v1.i_brand = v1_lead.i_brand)
+      AND (v1.s_store_name = v1_lag.s_store_name)
+      AND (v1.s_store_name = v1_lead.s_store_name)
+      AND (v1.s_company_name = v1_lag.s_company_name)
+      AND (v1.s_company_name = v1_lead.s_company_name)
+      AND (v1.rn = (v1_lag.rn + 1))
+      AND (v1.rn = (v1_lead.rn - 1))
+) 
+SELECT *
+FROM
+  v2
+WHERE (d_year = 1999)
+   AND (avg_monthly_sales > 0)
+   AND ((CASE WHEN (avg_monthly_sales > 0) THEN (abs((sum_sales - avg_monthly_sales)) / avg_monthly_sales) ELSE null END) > 0.1)
+ORDER BY round(sum_sales - avg_monthly_sales, 1) ASC, 1 asc, 2 asc, 3 asc, 4 asc, 5 asc, 6 asc, 7 asc, 8 asc, 9 asc, 10 asc
+LIMIT 100
+"""
+
+# q57: moving average restated in DOUBLE and the sort key
+# rounded with full-column tie-breaks so the LIMIT boundary is
+# deterministic across engines (decimal-avg scale rounding vs
+# float would otherwise flip near-tie orderings)
+QUERIES["q57"] = """
+WITH
+  v1 AS (
+   SELECT
+     i_category
+   , i_brand
+   , cc_name
+   , d_year
+   , d_moy
+   , sum(cs_sales_price) sum_sales
+   , avg(cast(sum(cs_sales_price) as double)) OVER (PARTITION BY i_category, i_brand, cc_name, d_year) avg_monthly_sales
+   , rank() OVER (PARTITION BY i_category, i_brand, cc_name ORDER BY d_year ASC, d_moy ASC) rn
+   FROM
+     item
+   , catalog_sales
+   , date_dim
+   , call_center
+   WHERE (cs_item_sk = i_item_sk)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (cc_call_center_sk = cs_call_center_sk)
+      AND ((d_year = 1999)
+         OR ((d_year = (1999 - 1))
+            AND (d_moy = 12))
+         OR ((d_year = (1999 + 1))
+            AND (d_moy = 1)))
+   GROUP BY i_category, i_brand, cc_name, d_year, d_moy
+) 
+, v2 AS (
+   SELECT
+     v1.i_category
+   , v1.i_brand
+   , v1.cc_name
+   , v1.d_year
+   , v1.d_moy
+   , v1.avg_monthly_sales
+   , v1.sum_sales
+   , v1_lag.sum_sales psum
+   , v1_lead.sum_sales nsum
+   FROM
+     v1
+   , v1 v1_lag
+   , v1 v1_lead
+   WHERE (v1.i_category = v1_lag.i_category)
+      AND (v1.i_category = v1_lead.i_category)
+      AND (v1.i_brand = v1_lag.i_brand)
+      AND (v1.i_brand = v1_lead.i_brand)
+      AND (v1.cc_name = v1_lag.cc_name)
+      AND (v1.cc_name = v1_lead.cc_name)
+      AND (v1.rn = (v1_lag.rn + 1))
+      AND (v1.rn = (v1_lead.rn - 1))
+) 
+SELECT *
+FROM
+  v2
+WHERE (d_year = 1999)
+   AND (avg_monthly_sales > 0)
+   AND ((CASE WHEN (avg_monthly_sales > 0) THEN (abs((sum_sales - avg_monthly_sales)) / avg_monthly_sales) ELSE null END) > 0.1)
+ORDER BY round(sum_sales - avg_monthly_sales, 1) ASC, 1 asc, 2 asc, 3 asc, 4 asc, 5 asc, 6 asc, 7 asc, 8 asc, 9 asc
+LIMIT 100
+"""
+
+QUERIES["q51"] = """
+WITH
+  web_v1 AS (
+   SELECT
+     ws_item_sk item_sk
+   , d_date
+   , sum(sum(ws_sales_price)) OVER (PARTITION BY ws_item_sk ORDER BY d_date ASC ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW) cume_sales
+   FROM
+     web_sales
+   , date_dim
+   WHERE (ws_sold_date_sk = d_date_sk)
+      AND (d_month_seq BETWEEN 1200 AND (1200 + 11))
+      AND (ws_item_sk IS NOT NULL)
+   GROUP BY ws_item_sk, d_date
+) 
+, store_v1 AS (
+   SELECT
+     ss_item_sk item_sk
+   , d_date
+   , sum(sum(ss_sales_price)) OVER (PARTITION BY ss_item_sk ORDER BY d_date ASC ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW) cume_sales
+   FROM
+     store_sales
+   , date_dim
+   WHERE (ss_sold_date_sk = d_date_sk)
+      AND (d_month_seq BETWEEN 1200 AND (1200 + 11))
+      AND (ss_item_sk IS NOT NULL)
+   GROUP BY ss_item_sk, d_date
+) 
+SELECT *
+FROM
+  (
+   SELECT
+     item_sk
+   , d_date
+   , web_sales
+   , store_sales
+   , max(web_sales) OVER (PARTITION BY item_sk ORDER BY d_date ASC ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW) web_cumulative
+   , max(store_sales) OVER (PARTITION BY item_sk ORDER BY d_date ASC ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW) store_cumulative
+   FROM
+     (
+      SELECT
+        (CASE WHEN (web.item_sk IS NOT NULL) THEN web.item_sk ELSE store.item_sk END) item_sk
+      , (CASE WHEN (web.d_date IS NOT NULL) THEN web.d_date ELSE store.d_date END) d_date
+      , web.cume_sales web_sales
+      , store.cume_sales store_sales
+      FROM
+        (web_v1 web
+      FULL JOIN store_v1 store ON (web.item_sk = store.item_sk)
+         AND (web.d_date = store.d_date))
+   )  x
+)  y
+WHERE (web_cumulative > store_cumulative)
+ORDER BY item_sk ASC, d_date ASC
+LIMIT 100
+"""
+
+QUERIES["q9"] = """
+SELECT
+  (CASE WHEN ((
+      SELECT count(*)
+      FROM
+        store_sales
+      WHERE (ss_quantity BETWEEN 1 AND 20)
+   ) > 74129) THEN (
+   SELECT avg(ss_ext_discount_amt)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 1 AND 20)
+) ELSE (
+   SELECT avg(ss_net_paid)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 1 AND 20)
+) END) bucket1
+, (CASE WHEN ((
+      SELECT count(*)
+      FROM
+        store_sales
+      WHERE (ss_quantity BETWEEN 21 AND 40)
+   ) > 122840) THEN (
+   SELECT avg(ss_ext_discount_amt)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 21 AND 40)
+) ELSE (
+   SELECT avg(ss_net_paid)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 21 AND 40)
+) END) bucket2
+, (CASE WHEN ((
+      SELECT count(*)
+      FROM
+        store_sales
+      WHERE (ss_quantity BETWEEN 41 AND 60)
+   ) > 56580) THEN (
+   SELECT avg(ss_ext_discount_amt)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 41 AND 60)
+) ELSE (
+   SELECT avg(ss_net_paid)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 41 AND 60)
+) END) bucket3
+, (CASE WHEN ((
+      SELECT count(*)
+      FROM
+        store_sales
+      WHERE (ss_quantity BETWEEN 61 AND 80)
+   ) > 10097) THEN (
+   SELECT avg(ss_ext_discount_amt)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 61 AND 80)
+) ELSE (
+   SELECT avg(ss_net_paid)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 61 AND 80)
+) END) bucket4
+, (CASE WHEN ((
+      SELECT count(*)
+      FROM
+        store_sales
+      WHERE (ss_quantity BETWEEN 81 AND 100)
+   ) > 165306) THEN (
+   SELECT avg(ss_ext_discount_amt)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 81 AND 100)
+) ELSE (
+   SELECT avg(ss_net_paid)
+   FROM
+     store_sales
+   WHERE (ss_quantity BETWEEN 81 AND 100)
+) END) bucket5
+FROM
+  reason
+WHERE (r_reason_sk = 1)
+"""
+
+QUERIES["q10"] = """
+SELECT
+  cd_gender
+, cd_marital_status
+, cd_education_status
+, count(*) cnt1
+, cd_purchase_estimate
+, count(*) cnt2
+, cd_credit_rating
+, count(*) cnt3
+, cd_dep_count
+, count(*) cnt4
+, cd_dep_employed_count
+, count(*) cnt5
+, cd_dep_college_count
+, count(*) cnt6
+FROM
+  customer c
+, customer_address ca
+, customer_demographics
+WHERE (c.c_current_addr_sk = ca.ca_address_sk)
+   AND (ca_county IN ('Rush County', 'Toole County', 'Jefferson County', 'Dona Ana County', 'La Porte County'))
+   AND (cd_demo_sk = c.c_current_cdemo_sk)
+   AND (EXISTS (
+   SELECT *
+   FROM
+     store_sales
+   , date_dim
+   WHERE (c.c_customer_sk = ss_customer_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year = 2002)
+      AND (d_moy BETWEEN 1 AND (1 + 3))
+))
+   AND ((EXISTS (
+      SELECT *
+      FROM
+        web_sales
+      , date_dim
+      WHERE (c.c_customer_sk = ws_bill_customer_sk)
+         AND (ws_sold_date_sk = d_date_sk)
+         AND (d_year = 2002)
+         AND (d_moy BETWEEN 1 AND (1 + 3))
+   ))
+      OR (EXISTS (
+      SELECT *
+      FROM
+        catalog_sales
+      , date_dim
+      WHERE (c.c_customer_sk = cs_ship_customer_sk)
+         AND (cs_sold_date_sk = d_date_sk)
+         AND (d_year = 2002)
+         AND (d_moy BETWEEN 1 AND (1 + 3))
+   )))
+GROUP BY cd_gender, cd_marital_status, cd_education_status, cd_purchase_estimate, cd_credit_rating, cd_dep_count, cd_dep_employed_count, cd_dep_college_count
+ORDER BY cd_gender ASC, cd_marital_status ASC, cd_education_status ASC, cd_purchase_estimate ASC, cd_credit_rating ASC, cd_dep_count ASC, cd_dep_employed_count ASC, cd_dep_college_count ASC
+LIMIT 100
+"""
+
+QUERIES["q35"] = """
+SELECT
+  ca_state
+, cd_gender
+, cd_marital_status
+, cd_dep_count
+, count(*) cnt1
+, min(cd_dep_count)
+, max(cd_dep_count)
+, avg(cd_dep_count)
+, cd_dep_employed_count
+, count(*) cnt2
+, min(cd_dep_employed_count)
+, max(cd_dep_employed_count)
+, avg(cd_dep_employed_count)
+, cd_dep_college_count
+, count(*) cnt3
+, min(cd_dep_college_count)
+, max(cd_dep_college_count)
+, avg(cd_dep_college_count)
+FROM
+  customer c
+, customer_address ca
+, customer_demographics
+WHERE (c.c_current_addr_sk = ca.ca_address_sk)
+   AND (cd_demo_sk = c.c_current_cdemo_sk)
+   AND (EXISTS (
+   SELECT *
+   FROM
+     store_sales
+   , date_dim
+   WHERE (c.c_customer_sk = ss_customer_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year = 2002)
+      AND (d_qoy < 4)
+))
+   AND ((EXISTS (
+      SELECT *
+      FROM
+        web_sales
+      , date_dim
+      WHERE (c.c_customer_sk = ws_bill_customer_sk)
+         AND (ws_sold_date_sk = d_date_sk)
+         AND (d_year = 2002)
+         AND (d_qoy < 4)
+   ))
+      OR (EXISTS (
+      SELECT *
+      FROM
+        catalog_sales
+      , date_dim
+      WHERE (c.c_customer_sk = cs_ship_customer_sk)
+         AND (cs_sold_date_sk = d_date_sk)
+         AND (d_year = 2002)
+         AND (d_qoy < 4)
+   )))
+GROUP BY ca_state, cd_gender, cd_marital_status, cd_dep_count, cd_dep_employed_count, cd_dep_college_count
+ORDER BY ca_state ASC, cd_gender ASC, cd_marital_status ASC, cd_dep_count ASC, cd_dep_employed_count ASC, cd_dep_college_count ASC
+LIMIT 100
+"""
+
+QUERIES["q45"] = """
+SELECT
+  ca_zip
+, ca_city
+, sum(ws_sales_price)
+FROM
+  web_sales
+, customer
+, customer_address
+, date_dim
+, item
+WHERE (ws_bill_customer_sk = c_customer_sk)
+   AND (c_current_addr_sk = ca_address_sk)
+   AND (ws_item_sk = i_item_sk)
+   AND ((substr(ca_zip, 1, 5) IN ('85669'   , '86197'   , '88274'   , '83405'   , '86475'   , '85392'   , '85460'   , '80348'   , '81792'))
+      OR (i_item_id IN (
+      SELECT i_item_id
+      FROM
+        item
+      WHERE (i_item_sk IN (2      , 3      , 5      , 7      , 11      , 13      , 17      , 19      , 23      , 29))
+   )))
+   AND (ws_sold_date_sk = d_date_sk)
+   AND (d_qoy = 2)
+   AND (d_year = 2001)
+GROUP BY ca_zip, ca_city
+ORDER BY ca_zip ASC, ca_city ASC
+LIMIT 100
+"""
+
+QUERIES["q74"] = """
+WITH
+  year_total AS (
+   SELECT
+     c_customer_id customer_id
+   , c_first_name customer_first_name
+   , c_last_name customer_last_name
+   , d_year year_
+   , sum(ss_net_paid) year_total
+   , 's' sale_type
+   FROM
+     customer
+   , store_sales
+   , date_dim
+   WHERE (c_customer_sk = ss_customer_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year IN (2001   , (2001 + 1)))
+   GROUP BY c_customer_id, c_first_name, c_last_name, d_year
+UNION ALL    SELECT
+     c_customer_id customer_id
+   , c_first_name customer_first_name
+   , c_last_name customer_last_name
+   , d_year year_
+   , sum(ws_net_paid) year_total
+   , 'w' sale_type
+   FROM
+     customer
+   , web_sales
+   , date_dim
+   WHERE (c_customer_sk = ws_bill_customer_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (d_year IN (2001   , (2001 + 1)))
+   GROUP BY c_customer_id, c_first_name, c_last_name, d_year
+) 
+SELECT
+  t_s_secyear.customer_id
+, t_s_secyear.customer_first_name
+, t_s_secyear.customer_last_name
+FROM
+  year_total t_s_firstyear
+, year_total t_s_secyear
+, year_total t_w_firstyear
+, year_total t_w_secyear
+WHERE (t_s_secyear.customer_id = t_s_firstyear.customer_id)
+   AND (t_s_firstyear.customer_id = t_w_secyear.customer_id)
+   AND (t_s_firstyear.customer_id = t_w_firstyear.customer_id)
+   AND (t_s_firstyear.sale_type = 's')
+   AND (t_w_firstyear.sale_type = 'w')
+   AND (t_s_secyear.sale_type = 's')
+   AND (t_w_secyear.sale_type = 'w')
+   AND (t_s_firstyear.year_ = 2001)
+   AND (t_s_secyear.year_ = (2001 + 1))
+   AND (t_w_firstyear.year_ = 2001)
+   AND (t_w_secyear.year_ = (2001 + 1))
+   AND (t_s_firstyear.year_total > 0)
+   AND (t_w_firstyear.year_total > 0)
+   AND ((CASE WHEN (t_w_firstyear.year_total > 0) THEN (t_w_secyear.year_total / t_w_firstyear.year_total) ELSE null END) > (CASE WHEN (t_s_firstyear.year_total > 0) THEN (t_s_secyear.year_total / t_s_firstyear.year_total) ELSE null END))
+ORDER BY 1 ASC, 1 ASC, 1 ASC
+LIMIT 100
+"""
+
+QUERIES["q87"] = """
+SELECT count(*)
+FROM
+  (
+(
+      SELECT DISTINCT
+        c_last_name
+      , c_first_name
+      , d_date
+      FROM
+        store_sales
+      , date_dim
+      , customer
+      WHERE (store_sales.ss_sold_date_sk = date_dim.d_date_sk)
+         AND (store_sales.ss_customer_sk = customer.c_customer_sk)
+         AND (d_month_seq BETWEEN 1200 AND (1200 + 11))
+   ) EXCEPT (
+      SELECT DISTINCT
+        c_last_name
+      , c_first_name
+      , d_date
+      FROM
+        catalog_sales
+      , date_dim
+      , customer
+      WHERE (catalog_sales.cs_sold_date_sk = date_dim.d_date_sk)
+         AND (catalog_sales.cs_bill_customer_sk = customer.c_customer_sk)
+         AND (d_month_seq BETWEEN 1200 AND (1200 + 11))
+   ) EXCEPT (
+      SELECT DISTINCT
+        c_last_name
+      , c_first_name
+      , d_date
+      FROM
+        web_sales
+      , date_dim
+      , customer
+      WHERE (web_sales.ws_sold_date_sk = date_dim.d_date_sk)
+         AND (web_sales.ws_bill_customer_sk = customer.c_customer_sk)
+         AND (d_month_seq BETWEEN 1200 AND (1200 + 11))
+   ) )  cool_cust
+"""
+
+QUERIES["q14"] = """
+WITH
+  cross_items AS (
+   SELECT i_item_sk ss_item_sk
+   FROM
+     item
+   , (
+      SELECT
+        iss.i_brand_id brand_id
+      , iss.i_class_id class_id
+      , iss.i_category_id category_id
+      FROM
+        store_sales
+      , item iss
+      , date_dim d1
+      WHERE (ss_item_sk = iss.i_item_sk)
+         AND (ss_sold_date_sk = d1.d_date_sk)
+         AND (d1.d_year BETWEEN 1999 AND (1999 + 2))
+INTERSECT       SELECT
+        ics.i_brand_id
+      , ics.i_class_id
+      , ics.i_category_id
+      FROM
+        catalog_sales
+      , item ics
+      , date_dim d2
+      WHERE (cs_item_sk = ics.i_item_sk)
+         AND (cs_sold_date_sk = d2.d_date_sk)
+         AND (d2.d_year BETWEEN 1999 AND (1999 + 2))
+INTERSECT       SELECT
+        iws.i_brand_id
+      , iws.i_class_id
+      , iws.i_category_id
+      FROM
+        web_sales
+      , item iws
+      , date_dim d3
+      WHERE (ws_item_sk = iws.i_item_sk)
+         AND (ws_sold_date_sk = d3.d_date_sk)
+         AND (d3.d_year BETWEEN 1999 AND (1999 + 2))
+   ) 
+   WHERE (i_brand_id = brand_id)
+      AND (i_class_id = class_id)
+      AND (i_category_id = category_id)
+) 
+, avg_sales AS (
+   SELECT avg((quantity * list_price)) average_sales
+   FROM
+     (
+      SELECT
+        ss_quantity quantity
+      , ss_list_price list_price
+      FROM
+        store_sales
+      , date_dim
+      WHERE (ss_sold_date_sk = d_date_sk)
+         AND (d_year BETWEEN 1999 AND (1999 + 2))
+UNION ALL       SELECT
+        cs_quantity quantity
+      , cs_list_price list_price
+      FROM
+        catalog_sales
+      , date_dim
+      WHERE (cs_sold_date_sk = d_date_sk)
+         AND (d_year BETWEEN 1999 AND (1999 + 2))
+UNION ALL       SELECT
+        ws_quantity quantity
+      , ws_list_price list_price
+      FROM
+        web_sales
+      , date_dim
+      WHERE (ws_sold_date_sk = d_date_sk)
+         AND (d_year BETWEEN 1999 AND (1999 + 2))
+   )  x
+) 
+SELECT
+  channel
+, i_brand_id
+, i_class_id
+, i_category_id
+, sum(sales)
+, sum(number_sales)
+FROM
+  (
+   SELECT
+     'store' channel
+   , i_brand_id
+   , i_class_id
+   , i_category_id
+   , sum((ss_quantity * ss_list_price)) sales
+   , count(*) number_sales
+   FROM
+     store_sales
+   , item
+   , date_dim
+   WHERE (ss_item_sk IN (
+      SELECT ss_item_sk
+      FROM
+        cross_items
+   ))
+      AND (ss_item_sk = i_item_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year = (1999 + 2))
+      AND (d_moy = 11)
+   GROUP BY i_brand_id, i_class_id, i_category_id
+   HAVING (sum((ss_quantity * ss_list_price)) > (
+         SELECT average_sales
+         FROM
+           avg_sales
+      ))
+UNION ALL    SELECT
+     'catalog' channel
+   , i_brand_id
+   , i_class_id
+   , i_category_id
+   , sum((cs_quantity * cs_list_price)) sales
+   , count(*) number_sales
+   FROM
+     catalog_sales
+   , item
+   , date_dim
+   WHERE (cs_item_sk IN (
+      SELECT ss_item_sk
+      FROM
+        cross_items
+   ))
+      AND (cs_item_sk = i_item_sk)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (d_year = (1999 + 2))
+      AND (d_moy = 11)
+   GROUP BY i_brand_id, i_class_id, i_category_id
+   HAVING (sum((cs_quantity * cs_list_price)) > (
+         SELECT average_sales
+         FROM
+           avg_sales
+      ))
+UNION ALL    SELECT
+     'web' channel
+   , i_brand_id
+   , i_class_id
+   , i_category_id
+   , sum((ws_quantity * ws_list_price)) sales
+   , count(*) number_sales
+   FROM
+     web_sales
+   , item
+   , date_dim
+   WHERE (ws_item_sk IN (
+      SELECT ss_item_sk
+      FROM
+        cross_items
+   ))
+      AND (ws_item_sk = i_item_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (d_year = (1999 + 2))
+      AND (d_moy = 11)
+   GROUP BY i_brand_id, i_class_id, i_category_id
+   HAVING (sum((ws_quantity * ws_list_price)) > (
+         SELECT average_sales
+         FROM
+           avg_sales
+      ))
+)  y
+GROUP BY ROLLUP (channel, i_brand_id, i_class_id, i_category_id)
+ORDER BY channel ASC, i_brand_id ASC, i_class_id ASC, i_category_id ASC
+LIMIT 100
+"""
+
+QUERIES["q70"] = """
+SELECT
+  sum(ss_net_profit) total_sum
+, s_state
+, s_county
+, (GROUPING (s_state) + GROUPING (s_county)) lochierarchy
+, rank() OVER (PARTITION BY (GROUPING (s_state) + GROUPING (s_county)), (CASE WHEN (GROUPING (s_county) = 0) THEN s_state END) ORDER BY sum(ss_net_profit) DESC) rank_within_parent
+FROM
+  store_sales
+, date_dim d1
+, store
+WHERE (d1.d_month_seq BETWEEN 1200 AND (1200 + 11))
+   AND (d1.d_date_sk = ss_sold_date_sk)
+   AND (s_store_sk = ss_store_sk)
+   AND (s_state IN (
+   SELECT s_state
+   FROM
+     (
+      SELECT
+        s_state s_state
+      , rank() OVER (PARTITION BY s_state ORDER BY sum(ss_net_profit) DESC) ranking
+      FROM
+        store_sales
+      , store
+      , date_dim
+      WHERE (d_month_seq BETWEEN 1200 AND (1200 + 11))
+         AND (d_date_sk = ss_sold_date_sk)
+         AND (s_store_sk = ss_store_sk)
+      GROUP BY s_state
+   )  tmp1
+   WHERE (ranking <= 5)
+))
+GROUP BY ROLLUP (s_state, s_county)
+ORDER BY lochierarchy DESC, (CASE WHEN (lochierarchy = 0) THEN s_state END) ASC, rank_within_parent ASC
+LIMIT 100
+"""
+
+# ROLLUP/GROUPING hand-spelled as UNION ALL levels for the
+# sqlite oracle (sqlite has no grouping sets)
+SQLITE_ORACLE["q14"] = """
+WITH
+  cross_items AS (
+   SELECT i_item_sk ss_item_sk
+   FROM
+     item
+   , (
+      SELECT
+        iss.i_brand_id brand_id
+      , iss.i_class_id class_id
+      , iss.i_category_id category_id
+      FROM
+        store_sales
+      , item iss
+      , date_dim d1
+      WHERE (ss_item_sk = iss.i_item_sk)
+         AND (ss_sold_date_sk = d1.d_date_sk)
+         AND (d1.d_year BETWEEN 1999 AND (1999 + 2))
+INTERSECT       SELECT
+        ics.i_brand_id
+      , ics.i_class_id
+      , ics.i_category_id
+      FROM
+        catalog_sales
+      , item ics
+      , date_dim d2
+      WHERE (cs_item_sk = ics.i_item_sk)
+         AND (cs_sold_date_sk = d2.d_date_sk)
+         AND (d2.d_year BETWEEN 1999 AND (1999 + 2))
+INTERSECT       SELECT
+        iws.i_brand_id
+      , iws.i_class_id
+      , iws.i_category_id
+      FROM
+        web_sales
+      , item iws
+      , date_dim d3
+      WHERE (ws_item_sk = iws.i_item_sk)
+         AND (ws_sold_date_sk = d3.d_date_sk)
+         AND (d3.d_year BETWEEN 1999 AND (1999 + 2))
+   ) 
+   WHERE (i_brand_id = brand_id)
+      AND (i_class_id = class_id)
+      AND (i_category_id = category_id)
+) 
+, avg_sales AS (
+   SELECT avg((quantity * list_price)) average_sales
+   FROM
+     (
+      SELECT
+        ss_quantity quantity
+      , ss_list_price list_price
+      FROM
+        store_sales
+      , date_dim
+      WHERE (ss_sold_date_sk = d_date_sk)
+         AND (d_year BETWEEN 1999 AND (1999 + 2))
+UNION ALL       SELECT
+        cs_quantity quantity
+      , cs_list_price list_price
+      FROM
+        catalog_sales
+      , date_dim
+      WHERE (cs_sold_date_sk = d_date_sk)
+         AND (d_year BETWEEN 1999 AND (1999 + 2))
+UNION ALL       SELECT
+        ws_quantity quantity
+      , ws_list_price list_price
+      FROM
+        web_sales
+      , date_dim
+      WHERE (ws_sold_date_sk = d_date_sk)
+         AND (d_year BETWEEN 1999 AND (1999 + 2))
+   )  x
+)
+, y AS (
+
+   SELECT
+     'store' channel
+   , i_brand_id
+   , i_class_id
+   , i_category_id
+   , sum((ss_quantity * ss_list_price)) sales
+   , count(*) number_sales
+   FROM
+     store_sales
+   , item
+   , date_dim
+   WHERE (ss_item_sk IN (
+      SELECT ss_item_sk
+      FROM
+        cross_items
+   ))
+      AND (ss_item_sk = i_item_sk)
+      AND (ss_sold_date_sk = d_date_sk)
+      AND (d_year = (1999 + 2))
+      AND (d_moy = 11)
+   GROUP BY i_brand_id, i_class_id, i_category_id
+   HAVING (sum((ss_quantity * ss_list_price)) > (
+         SELECT average_sales
+         FROM
+           avg_sales
+      ))
+UNION ALL    SELECT
+     'catalog' channel
+   , i_brand_id
+   , i_class_id
+   , i_category_id
+   , sum((cs_quantity * cs_list_price)) sales
+   , count(*) number_sales
+   FROM
+     catalog_sales
+   , item
+   , date_dim
+   WHERE (cs_item_sk IN (
+      SELECT ss_item_sk
+      FROM
+        cross_items
+   ))
+      AND (cs_item_sk = i_item_sk)
+      AND (cs_sold_date_sk = d_date_sk)
+      AND (d_year = (1999 + 2))
+      AND (d_moy = 11)
+   GROUP BY i_brand_id, i_class_id, i_category_id
+   HAVING (sum((cs_quantity * cs_list_price)) > (
+         SELECT average_sales
+         FROM
+           avg_sales
+      ))
+UNION ALL    SELECT
+     'web' channel
+   , i_brand_id
+   , i_class_id
+   , i_category_id
+   , sum((ws_quantity * ws_list_price)) sales
+   , count(*) number_sales
+   FROM
+     web_sales
+   , item
+   , date_dim
+   WHERE (ws_item_sk IN (
+      SELECT ss_item_sk
+      FROM
+        cross_items
+   ))
+      AND (ws_item_sk = i_item_sk)
+      AND (ws_sold_date_sk = d_date_sk)
+      AND (d_year = (1999 + 2))
+      AND (d_moy = 11)
+   GROUP BY i_brand_id, i_class_id, i_category_id
+   HAVING (sum((ws_quantity * ws_list_price)) > (
+         SELECT average_sales
+         FROM
+           avg_sales
+      ))
+)
+SELECT channel, i_brand_id, i_class_id, i_category_id,
+       sum(sales), sum(number_sales)
+FROM (
+  select channel, i_brand_id, i_class_id, i_category_id, sales, number_sales from y
+  union all
+  select channel, i_brand_id, i_class_id, null, sales, number_sales from y
+  union all
+  select channel, i_brand_id, null, null, sales, number_sales from y
+  union all
+  select channel, null, null, null, sales, number_sales from y
+  union all
+  select null, null, null, null, sales, number_sales from y
+) z
+GROUP BY channel, i_brand_id, i_class_id, i_category_id
+ORDER BY channel ASC NULLS LAST, i_brand_id ASC NULLS LAST,
+         i_class_id ASC NULLS LAST, i_category_id ASC NULLS LAST
+LIMIT 100
+"""
+
+SQLITE_ORACLE["q70"] = """
+with base as (
+  select s_state st, s_county cty, sum(ss_net_profit) np
+  from store_sales, date_dim d1, store
+  where d1.d_month_seq between 1200 and 1211
+    and d1.d_date_sk = ss_sold_date_sk
+    and s_store_sk = ss_store_sk
+    and s_state in (
+      select s_state from (
+        select s_state,
+               rank() over (partition by s_state
+                            order by sum(ss_net_profit) desc) ranking
+        from store_sales, store, date_dim
+        where d_month_seq between 1200 and 1211
+          and d_date_sk = ss_sold_date_sk
+          and s_store_sk = ss_store_sk
+        group by s_state) tmp1
+      where ranking <= 5)
+  group by s_state, s_county
+), lvl as (
+  select np total_sum, st s_state, cty s_county, 0 lochierarchy from base
+  union all
+  select sum(np), st, null, 1 from base group by st
+  union all
+  select sum(np), null, null, 2 from base
+)
+select total_sum, s_state, s_county, lochierarchy,
+       rank() over (partition by lochierarchy,
+                    case when lochierarchy = 0 then s_state end
+                    order by total_sum desc) rank_within_parent
+from lvl
+order by lochierarchy desc,
+         case when lochierarchy = 0 then s_state end asc nulls last,
+         rank_within_parent asc
+limit 100
+"""
+
+QUERIES["q41"] = """
+SELECT DISTINCT i_product_name
+FROM
+  item i1
+WHERE (i_manufact_id BETWEEN 738 AND (738 + 40))
+   AND ((
+      SELECT count(*) item_cnt
+      FROM
+        item
+      WHERE ((i_manufact = i1.i_manufact)
+            AND (((i_category = 'Women')
+                  AND ((i_color = 'powder')
+                     OR (i_color = 'khaki'))
+                  AND ((i_units = 'Ounce')
+                     OR (i_units = 'Oz'))
+                  AND ((i_size = 'medium')
+                     OR (i_size = 'extra large')))
+               OR ((i_category = 'Women')
+                  AND ((i_color = 'brown')
+                     OR (i_color = 'honeydew'))
+                  AND ((i_units = 'Bunch')
+                     OR (i_units = 'Ton'))
+                  AND ((i_size = 'N/A')
+                     OR (i_size = 'small')))
+               OR ((i_category = 'Men')
+                  AND ((i_color = 'floral')
+                     OR (i_color = 'deep'))
+                  AND ((i_units = 'N/A')
+                     OR (i_units = 'Dozen'))
+                  AND ((i_size = 'petite')
+                     OR (i_size = 'large')))
+               OR ((i_category = 'Men')
+                  AND ((i_color = 'light')
+                     OR (i_color = 'cornflower'))
+                  AND ((i_units = 'Box')
+                     OR (i_units = 'Pound'))
+                  AND ((i_size = 'medium')
+                     OR (i_size = 'extra large')))))
+         OR ((i_manufact = i1.i_manufact)
+            AND (((i_category = 'Women')
+                  AND ((i_color = 'midnight')
+                     OR (i_color = 'snow'))
+                  AND ((i_units = 'Pallet')
+                     OR (i_units = 'Gross'))
+                  AND ((i_size = 'medium')
+                     OR (i_size = 'extra large')))
+               OR ((i_category = 'Women')
+                  AND ((i_color = 'cyan')
+                     OR (i_color = 'papaya'))
+                  AND ((i_units = 'Cup')
+                     OR (i_units = 'Dram'))
+                  AND ((i_size = 'N/A')
+                     OR (i_size = 'small')))
+               OR ((i_category = 'Men')
+                  AND ((i_color = 'orange')
+                     OR (i_color = 'frosted'))
+                  AND ((i_units = 'Each')
+                     OR (i_units = 'Tbl'))
+                  AND ((i_size = 'petite')
+                     OR (i_size = 'large')))
+               OR ((i_category = 'Men')
+                  AND ((i_color = 'forest')
+                     OR (i_color = 'ghost'))
+                  AND ((i_units = 'Lb')
+                     OR (i_units = 'Bundle'))
+                  AND ((i_size = 'medium')
+                     OR (i_size = 'extra large')))))
+   ) > 0)
+ORDER BY i_product_name ASC
+LIMIT 100
+"""
+
+QUERIES["q75"] = """
+WITH
+  all_sales AS (
+   SELECT
+     d_year
+   , i_brand_id
+   , i_class_id
+   , i_category_id
+   , i_manufact_id
+   , sum(sales_cnt) sales_cnt
+   , sum(sales_amt) sales_amt
+   FROM
+     (
+      SELECT
+        d_year
+      , i_brand_id
+      , i_class_id
+      , i_category_id
+      , i_manufact_id
+      , (cs_quantity - COALESCE(cr_return_quantity, 0)) sales_cnt
+      , (cs_ext_sales_price - COALESCE(cr_return_amount, 0.0)) sales_amt
+      FROM
+        (((catalog_sales
+      INNER JOIN item ON (i_item_sk = cs_item_sk))
+      INNER JOIN date_dim ON (d_date_sk = cs_sold_date_sk))
+      LEFT JOIN catalog_returns ON (cs_order_number = cr_order_number)
+         AND (cs_item_sk = cr_item_sk))
+      WHERE (i_category = 'Books')
+UNION       SELECT
+        d_year
+      , i_brand_id
+      , i_class_id
+      , i_category_id
+      , i_manufact_id
+      , (ss_quantity - COALESCE(sr_return_quantity, 0)) sales_cnt
+      , (ss_ext_sales_price - COALESCE(sr_return_amt, 0.0)) sales_amt
+      FROM
+        (((store_sales
+      INNER JOIN item ON (i_item_sk = ss_item_sk))
+      INNER JOIN date_dim ON (d_date_sk = ss_sold_date_sk))
+      LEFT JOIN store_returns ON (ss_ticket_number = sr_ticket_number)
+         AND (ss_item_sk = sr_item_sk))
+      WHERE (i_category = 'Books')
+UNION       SELECT
+        d_year
+      , i_brand_id
+      , i_class_id
+      , i_category_id
+      , i_manufact_id
+      , (ws_quantity - COALESCE(wr_return_quantity, 0)) sales_cnt
+      , (ws_ext_sales_price - COALESCE(wr_return_amt, 0.0)) sales_amt
+      FROM
+        (((web_sales
+      INNER JOIN item ON (i_item_sk = ws_item_sk))
+      INNER JOIN date_dim ON (d_date_sk = ws_sold_date_sk))
+      LEFT JOIN web_returns ON (ws_order_number = wr_order_number)
+         AND (ws_item_sk = wr_item_sk))
+      WHERE (i_category = 'Books')
+   )  sales_detail
+   GROUP BY d_year, i_brand_id, i_class_id, i_category_id, i_manufact_id
+) 
+SELECT
+  prev_yr.d_year prev_year
+, curr_yr.d_year year_
+, curr_yr.i_brand_id
+, curr_yr.i_class_id
+, curr_yr.i_category_id
+, curr_yr.i_manufact_id
+, prev_yr.sales_cnt prev_yr_cnt
+, curr_yr.sales_cnt curr_yr_cnt
+, (curr_yr.sales_cnt - prev_yr.sales_cnt) sales_cnt_diff
+, (curr_yr.sales_amt - prev_yr.sales_amt) sales_amt_diff
+FROM
+  all_sales curr_yr
+, all_sales prev_yr
+WHERE (curr_yr.i_brand_id = prev_yr.i_brand_id)
+   AND (curr_yr.i_class_id = prev_yr.i_class_id)
+   AND (curr_yr.i_category_id = prev_yr.i_category_id)
+   AND (curr_yr.i_manufact_id = prev_yr.i_manufact_id)
+   AND (curr_yr.d_year = 2002)
+   AND (prev_yr.d_year = (2002 - 1))
+   AND ((CAST(curr_yr.sales_cnt AS DECIMAL(17,2)) / CAST(prev_yr.sales_cnt AS DECIMAL(17,2))) < 0.9)
+ORDER BY sales_cnt_diff ASC, sales_amt_diff ASC
+LIMIT 100
+"""
+
+QUERIES["q78"] = """
+WITH
+  ws AS (
+   SELECT
+     d_year ws_sold_year
+   , ws_item_sk
+   , ws_bill_customer_sk ws_customer_sk
+   , sum(ws_quantity) ws_qty
+   , sum(ws_wholesale_cost) ws_wc
+   , sum(ws_sales_price) ws_sp
+   FROM
+     ((web_sales
+   LEFT JOIN web_returns ON (wr_order_number = ws_order_number)
+      AND (ws_item_sk = wr_item_sk))
+   INNER JOIN date_dim ON (ws_sold_date_sk = d_date_sk))
+   WHERE (wr_order_number IS NULL)
+   GROUP BY d_year, ws_item_sk, ws_bill_customer_sk
+) 
+, cs AS (
+   SELECT
+     d_year cs_sold_year
+   , cs_item_sk
+   , cs_bill_customer_sk cs_customer_sk
+   , sum(cs_quantity) cs_qty
+   , sum(cs_wholesale_cost) cs_wc
+   , sum(cs_sales_price) cs_sp
+   FROM
+     ((catalog_sales
+   LEFT JOIN catalog_returns ON (cr_order_number = cs_order_number)
+      AND (cs_item_sk = cr_item_sk))
+   INNER JOIN date_dim ON (cs_sold_date_sk = d_date_sk))
+   WHERE (cr_order_number IS NULL)
+   GROUP BY d_year, cs_item_sk, cs_bill_customer_sk
+) 
+, ss AS (
+   SELECT
+     d_year ss_sold_year
+   , ss_item_sk
+   , ss_customer_sk
+   , sum(ss_quantity) ss_qty
+   , sum(ss_wholesale_cost) ss_wc
+   , sum(ss_sales_price) ss_sp
+   FROM
+     ((store_sales
+   LEFT JOIN store_returns ON (sr_ticket_number = ss_ticket_number)
+      AND (ss_item_sk = sr_item_sk))
+   INNER JOIN date_dim ON (ss_sold_date_sk = d_date_sk))
+   WHERE (sr_ticket_number IS NULL)
+   GROUP BY d_year, ss_item_sk, ss_customer_sk
+) 
+SELECT
+  ss_sold_year
+, ss_item_sk
+, ss_customer_sk
+, round((CAST(ss_qty AS DECIMAL(10,2)) / COALESCE((ws_qty + cs_qty), 1)), 2) ratio
+, ss_qty store_qty
+, ss_wc store_wholesale_cost
+, ss_sp store_sales_price
+, (COALESCE(ws_qty, 0) + COALESCE(cs_qty, 0)) other_chan_qty
+, (COALESCE(ws_wc, 0) + COALESCE(cs_wc, 0)) other_chan_wholesale_cost
+, (COALESCE(ws_sp, 0) + COALESCE(cs_sp, 0)) other_chan_sales_price
+FROM
+  ((ss
+LEFT JOIN ws ON (ws_sold_year = ss_sold_year)
+   AND (ws_item_sk = ss_item_sk)
+   AND (ws_customer_sk = ss_customer_sk))
+LEFT JOIN cs ON (cs_sold_year = ss_sold_year)
+   AND (cs_item_sk = cs_item_sk)
+   AND (cs_customer_sk = ss_customer_sk))
+WHERE (COALESCE(ws_qty, 0) > 0)
+   AND (COALESCE(cs_qty, 0) > 0)
+   AND (ss_sold_year = 2000)
+ORDER BY ss_sold_year ASC, ss_item_sk ASC, ss_customer_sk ASC, ss_qty DESC, ss_wc DESC, ss_sp DESC, other_chan_qty ASC, other_chan_wholesale_cost ASC, other_chan_sales_price ASC, round((CAST(ss_qty AS DECIMAL(10,2)) / COALESCE((ws_qty + cs_qty), 1)), 2) ASC
+LIMIT 100
+"""
+
+QUERIES["q84"] = """
+SELECT
+  c_customer_id customer_id
+, concat(concat(c_last_name, ', '), c_first_name) customername
+FROM
+  customer
+, customer_address
+, customer_demographics
+, household_demographics
+, income_band
+, store_returns
+WHERE (ca_city = 'Edgewood')
+   AND (c_current_addr_sk = ca_address_sk)
+   AND (ib_lower_bound >= 38128)
+   AND (ib_upper_bound <= (38128 + 50000))
+   AND (ib_income_band_sk = hd_income_band_sk)
+   AND (cd_demo_sk = c_current_cdemo_sk)
+   AND (hd_demo_sk = c_current_hdemo_sk)
+   AND (sr_cdemo_sk = cd_demo_sk)
+ORDER BY c_customer_id ASC
+LIMIT 100
+"""
+

@@ -62,6 +62,36 @@ __device__ __forceinline__ T block_sum(T v) {
   return out;
 }
 
+// Scan of one value per thread across a THREADS-wide block under an
+// associative op(earlier, later), in shared memory (Hillis-Steele). With
+// `reverse` the scan runs from the last thread to the first. Returns the
+// inclusive value; *excl receives the inclusive value of the thread just
+// before in scan order (*has_excl false for the first), *total the whole
+// block's. Every thread of the block must call it.
+template <typename T, typename Op>
+__device__ __forceinline__ T block_scan_op(T v, const Op& op, bool reverse,
+                                           T* excl, bool* has_excl, T* total) {
+  __shared__ T buf[THREADS];
+  const int i = reverse ? THREADS - 1 - (int)threadIdx.x : (int)threadIdx.x;
+  buf[i] = v;
+  __syncthreads();
+  for (int d = 1; d < THREADS; d <<= 1) {
+    T prev = v;
+    if (i >= d) prev = buf[i - d];
+    __syncthreads();
+    if (i >= d) {
+      v = op(prev, v);
+      buf[i] = v;
+    }
+    __syncthreads();
+  }
+  *has_excl = i > 0;
+  if (i > 0) *excl = buf[i - 1];
+  *total = buf[THREADS - 1];
+  __syncthreads();  // buf may be reused by the next call
+  return v;
+}
+
 inline unsigned int blocks_for(long long n, int per_block) {
   return (unsigned int)((n + per_block - 1) / per_block);
 }

@@ -80,6 +80,17 @@ class QueryRunner:
             md, Session(catalog="tpch", schema=schema), device=device
         )
 
+    @staticmethod
+    def tpcds(schema: str = "tiny", device=None) -> "QueryRunner":
+        """Runner with the TPC-DS catalog mounted."""
+        from trino_tpu_torch.connectors.tpcds.connector import TpcdsConnector
+
+        md = Metadata()
+        md.register_catalog("tpcds", TpcdsConnector())
+        return QueryRunner(
+            md, Session(catalog="tpcds", schema=schema), device=device
+        )
+
     # ---- planning --------------------------------------------------------
 
     def plan_stmt(self, stmt: ast.Statement, optimized: bool = True) -> P.PlanNode:

@@ -2,7 +2,7 @@
 ``trino_tpu/exec/kernels.py``.
 
 Everything is a whole-column computation on tensors of the executor's
-device. Ten functions have hand-written CUDA kernels (``csrc/``), each
+device. Fourteen functions have hand-written CUDA kernels (``csrc/``), each
 beside its plain torch version:
 
 - ``group_ids`` (K1): dense group ids, the inverse permutation and the
@@ -24,7 +24,14 @@ beside its plain torch version:
 - ``seg_minmax`` (K9): per-group min/max over group-sorted values
   (``seg_minmax_scan``);
 - ``order_words`` (K10): the ORDER BY words, null-flag and dead-row
-  bytes of ``sort_perm``, whose sorts stay ``torch.sort``.
+  bytes of ``sort_perm``, whose sorts stay ``torch.sort``;
+- ``window_peers`` (W1): a window's peer-group starts and ends and the
+  dense_rank counter (``window.py:94-122``);
+- ``range_sum`` (W2): per-row sums over window frames (``_range_sum``);
+- ``range_minmax`` (W3): running min/max over prefix window frames
+  (``_range_minmax``, ``_range_minmax_limbs``);
+- ``seg_searchsorted`` (W4): the bisection that turns RANGE offset
+  frames into positions (``_seg_searchsorted``).
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (and adds one to its ``launches`` count)
@@ -85,6 +92,14 @@ __all__ = [
     "scatter_any_plain",
     "count_true",
     "blocked_sum",
+    "window_peers",
+    "window_peers_plain",
+    "range_sum",
+    "range_sum_plain",
+    "range_minmax",
+    "range_minmax_plain",
+    "seg_searchsorted",
+    "seg_searchsorted_plain",
 ]
 
 I64 = torch.int64
@@ -1061,6 +1076,281 @@ def scatter_any(idx: torch.Tensor, flags: torch.Tensor, capacity: int) -> torch.
 
 scatter_any.launches = 0
 
+# ---- window functions --------------------------------------------------------
+
+
+def window_peers_plain(gid_sorted, keys, perm, pend, with_dense: bool = False):
+    """Plain torch version of W1 (port of ``window.py:94-122`` and
+    ``:181-182``): (peer_start, peer_end, dense) of the sorted rows.
+
+    A sorted row is a peer boundary when it is the first row, its
+    partition id differs from the previous row's, or any ORDER BY key
+    part ``(data, valid|None)`` (original row order, read through
+    ``perm``) differs in its ``normalize_key`` bits or NULL flag.
+    ``peer_start`` is the last boundary at or before the row,
+    ``peer_end`` the next boundary after it (n when none) capped at
+    ``pend``, ``dense`` the count of boundaries at or before the row
+    (None unless ``with_dense``). Boundary positions come from one
+    cumsum and gathers instead of the JAX package's max/min scans."""
+    n = gid_sorted.shape[0]
+    dev = gid_sorted.device
+    pos = torch.arange(n, dtype=I64, device=dev)
+    peer_b = (pos == 0) | (gid_sorted != torch.roll(gid_sorted, 1))
+    for data, valid in keys:
+        bits, flag = normalize_key(data, valid)
+        bs = bits[perm]
+        peer_b = peer_b | (bs != torch.roll(bs, 1))
+        if valid is not None:
+            fl = flag[perm]
+            peer_b = peer_b | (fl != torch.roll(fl, 1))
+    count = torch.cumsum(peer_b.to(I64), 0)
+    if n == 0:
+        return pos, pos.clone(), (count if with_dense else None)
+    bpos = torch.nonzero(peer_b).reshape(-1)
+    nb = bpos.shape[0]
+    peer_start = bpos[count - 1]
+    nxt = torch.where(
+        count < nb, bpos[count.clamp(max=nb - 1)], torch.full_like(count, n)
+    )
+    peer_end = torch.minimum(nxt, pend)
+    return peer_start, peer_end, (count if with_dense else None)
+
+
+def window_peers(gid_sorted, keys, perm, pend, with_dense: bool = False):
+    """W1 wrapper: (peer_start, peer_end, dense) of a window's sorted rows
+    (see ``window_peers_plain``); plain version on the CPU, CUDA kernel
+    (``csrc/window_peers.cu``) on the card, which reads the keys in
+    original order through ``perm``."""
+    if _on_cpu(gid_sorted, perm, pend, *(t for col in keys for t in col)):
+        return window_peers_plain(gid_sorted, keys, perm, pend, with_dense)
+    if len(keys) > MAX_KEY_PARTS:
+        raise ValueError(f"window_peers: at most {MAX_KEY_PARTS} key parts")
+    n = gid_sorted.shape[0]
+    _check("window_peers.gid_sorted", gid_sorted, I64, n)
+    _check("window_peers.perm", perm, I64, n)
+    _check("window_peers.pend", pend, I64, n)
+    keys = _dense_valid(keys)
+    rows = [_col_desc(f"window_peers[{i}]", d, v, n) for i, (d, v) in enumerate(keys)]
+    desc = _host_table(rows) if rows else torch.zeros((1, 4), dtype=I64)
+    dev = gid_sorted.device
+    tiles = max((n + 2047) // 2048, 1)
+    flag = torch.empty(n, dtype=torch.uint8, device=dev)
+    tile_last, tile_first, tile_cnt = (
+        torch.empty(tiles, dtype=I64, device=dev) for _ in range(3)
+    )
+    peer_start = torch.empty(n, dtype=I64, device=dev)
+    peer_end = torch.empty(n, dtype=I64, device=dev)
+    dense = torch.empty(n, dtype=I64, device=dev) if with_dense else None
+    native.call(
+        "window_peers", "window_peers_launch", desc, len(rows), gid_sorted,
+        perm, pend, n, flag, tile_last, tile_first, tile_cnt, peer_start,
+        peer_end, dense,
+    )
+    window_peers.launches += 1
+    return peer_start, peer_end, dense
+
+
+window_peers.launches = 0
+
+
+def _seg_scan_plain(vals: torch.Tensor, gid: torch.Tensor, combine):
+    """Segmented inclusive scan by non-decreasing ``gid`` in log steps:
+    each position combines with the one ``d`` back while both lie in one
+    segment (``combine(earlier, later)`` elementwise)."""
+    n = vals.shape[0]
+    m = vals
+    d = 1
+    while d < n:
+        joined = combine(m[:-d], m[d:])
+        inside = gid[d:] == gid[:-d]
+        if m.dim() == 2:
+            inside = inside[:, None]
+        m = torch.cat([m[:d], torch.where(inside, joined, m[d:])])
+        d <<= 1
+    return m
+
+
+def range_sum_plain(lanes, gid, lo, hi):
+    """Plain torch version of W2 (port of ``window.py:_range_sum``): per
+    lane, the sum of the sorted values over each row's frame [lo, hi).
+    Integer lanes: a cumsum difference (exact mod 2^64, as in the JAX
+    package). float64 lanes: a segmented scan by ``gid`` (log steps, so
+    the order of addition differs from the JAX package's
+    associative_scan), the frame's start read only inside the row's
+    partition."""
+    out = []
+    for vals in lanes:
+        n = vals.shape[0]
+        zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+        if n == 0:
+            out.append(vals.clone())
+            continue
+        hi_at = (hi - 1).clamp(0, n - 1)
+        lo_at = (lo - 1).clamp(0, n - 1)
+        if vals.dtype.is_floating_point:
+            cs = _seg_scan_plain(vals, gid, torch.add)
+            bot = torch.where((lo > 0) & (gid[lo_at] == gid), cs[lo_at], zero)
+        else:
+            cs = torch.cumsum(vals, 0)
+            bot = torch.where(lo > 0, cs[lo_at], zero)
+        top = torch.where(hi > 0, cs[hi_at], zero)
+        out.append(torch.where(hi > lo, top - bot, zero))
+    return out
+
+
+def range_sum(lanes, gid, lo, hi):
+    """W2 wrapper: frame sums of int64 or float64 lanes (see
+    ``range_sum_plain``) over the same frames, all lanes in one launch;
+    plain version on the CPU, CUDA kernel (``csrc/range_sum.cu``) on the
+    card."""
+    if _on_cpu(gid, lo, hi, *lanes):
+        return range_sum_plain(lanes, gid, lo, hi)
+    n = gid.shape[0]
+    _check("range_sum.gid", gid, I64, n)
+    _check("range_sum.lo", lo, I64, n)
+    _check("range_sum.hi", hi, I64, n)
+    dev = gid.device
+    outs, rows = [], []
+    for i, vals in enumerate(lanes):
+        if vals.dtype not in (I64, torch.float64):
+            raise TypeError(f"range_sum[{i}]: int64 or float64, got {vals.dtype}")
+        _check(f"range_sum[{i}]", vals, vals.dtype, n)
+        out = torch.empty(n, dtype=vals.dtype, device=dev)
+        outs.append(out)
+        rows.append([vals.data_ptr(), _TYPE_CODES[vals.dtype], out.data_ptr()])
+    tiles = max((n + 2047) // 2048, 1)
+    tile_f = torch.empty(tiles, dtype=torch.int32, device=dev)
+    tile_v = torch.empty(tiles, dtype=I64, device=dev)
+    cs = torch.empty(n, dtype=I64, device=dev)
+    native.call(
+        "range_sum", "range_sum_launch", _host_table(rows), len(rows), gid,
+        lo, hi, n, tile_f, tile_v, cs,
+    )
+    range_sum.launches += 1
+    return outs
+
+
+range_sum.launches = 0
+
+
+def _limb_pick(a: torch.Tensor, b: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """The lesser (``is_min``) or greater of two-limb decimals [m, 2]:
+    lexicographic over (hi signed, lo canonical)."""
+    if is_min:
+        a_better = (a[:, 0] < b[:, 0]) | ((a[:, 0] == b[:, 0]) & (a[:, 1] < b[:, 1]))
+    else:
+        a_better = (a[:, 0] > b[:, 0]) | ((a[:, 0] == b[:, 0]) & (a[:, 1] > b[:, 1]))
+    return torch.where(a_better[:, None], a, b)
+
+
+def _limb_fill(is_min: bool) -> tuple[int, int]:
+    """The two-limb fill of ``window.py:_range_minmax_limbs``."""
+    return ((1 << 63) - 1, 0xFFFFFFFF) if is_min else (-(1 << 63), 0)
+
+
+def range_minmax_plain(vals, gid, lo, hi, fill, is_min: bool):
+    """Plain torch version of W3 (port of ``window.py:_range_minmax`` and
+    ``_range_minmax_limbs``): a segmented running min/max of the
+    contribution-masked sorted values (non-contributing rows hold
+    ``fill``) read at hi-1; an empty frame gives ``fill``. ``vals`` is
+    [n] int64 or float64 (NaN propagating, -0.0 below +0.0) or [n, 2]
+    limbs (``fill`` then the pair of ``_limb_fill``)."""
+    n = vals.shape[0]
+    if vals.dim() == 2:
+        fill_t = torch.tensor(fill, dtype=I64, device=vals.device)
+        scan = _seg_scan_plain(vals, gid, lambda a, b: _limb_pick(a, b, is_min))
+        ok = (hi > lo)[:, None]
+    else:
+        fill_t = torch.tensor(fill, dtype=vals.dtype, device=vals.device)
+        scan = _seg_scan_plain(vals, gid, lambda a, b: _minmax_pair(a, b, is_min))
+        ok = hi > lo
+    if n == 0:
+        return vals.clone()
+    return torch.where(ok, scan[(hi - 1).clamp(0, n - 1)], fill_t)
+
+
+def range_minmax(vals, gid, lo, hi, fill, is_min: bool):
+    """W3 wrapper (see ``range_minmax_plain``): plain version on the CPU,
+    CUDA kernel (``csrc/range_minmax.cu``) on the card."""
+    if _on_cpu(vals, gid, lo, hi):
+        return range_minmax_plain(vals, gid, lo, hi, fill, is_min)
+    n = gid.shape[0]
+    _check("range_minmax.gid", gid, I64, n)
+    _check("range_minmax.lo", lo, I64, n)
+    _check("range_minmax.hi", hi, I64, n)
+    if not vals.is_contiguous() or vals.shape[0] != n:
+        raise ValueError("range_minmax: contiguous values of the rows' length")
+    if vals.dim() == 2:
+        if vals.dtype != I64 or vals.shape[1] != 2:
+            raise TypeError("range_minmax: limbs must be int64 [n, 2]")
+        code, (fill_hi, fill_lo) = 100, fill
+    elif vals.dtype == I64:
+        code, fill_hi, fill_lo = _TYPE_CODES[I64], int(fill), 0
+    elif vals.dtype == torch.float64:
+        code, fill_lo = _TYPE_CODES[torch.float64], 0
+        fill_hi = struct.unpack("<q", struct.pack("<d", float(fill)))[0]
+    else:
+        raise TypeError(f"range_minmax: int64, float64 or limbs, got {vals.dtype}")
+    dev = gid.device
+    lanes = 2 if vals.dim() == 2 else 1
+    tiles = max((n + 2047) // 2048, 1)
+    tile_f = torch.empty(tiles, dtype=torch.int32, device=dev)
+    tile_v = torch.empty((tiles, lanes), dtype=I64, device=dev)
+    scan = torch.empty_like(vals)
+    out = torch.empty_like(vals)
+    native.call(
+        "range_minmax", "range_minmax_launch", vals, code, gid, lo, hi, n,
+        fill_hi, fill_lo, int(is_min), tile_f, tile_v, scan, out,
+    )
+    range_minmax.launches += 1
+    return out
+
+
+range_minmax.launches = 0
+
+
+def seg_searchsorted_plain(w, target, lo0, hi0, left: bool):
+    """Plain torch version of W4 (port of ``window.py:_seg_searchsorted``):
+    per row, the first position in ``[lo0, hi0)`` whose sorted key ``w``
+    is >= the row's ``target`` (``left``), else > it; a fixed log2(n)
+    bisection steps over the whole page, as in the JAX package."""
+    n = w.shape[0]
+    lo, hi = lo0.clone(), hi0.clone()
+    for _ in range(max(n.bit_length(), 1)):
+        cont = lo < hi
+        mid = (lo + hi) // 2
+        vm = w[mid.clamp(0, max(n - 1, 0))] if n else target
+        go = (vm < target) if left else (vm <= target)
+        lo = torch.where(cont & go, mid + 1, lo)
+        hi = torch.where(cont & ~go, mid, hi)
+    return lo
+
+
+def seg_searchsorted(w, target, lo0, hi0, left: bool):
+    """W4 wrapper: per-row binary search of ``target`` inside the row's
+    own sorted range of ``w`` (int64 or float64, see
+    ``seg_searchsorted_plain``); plain version on the CPU, CUDA kernel
+    (``csrc/seg_searchsorted.cu``) on the card."""
+    if _on_cpu(w, target, lo0, hi0):
+        return seg_searchsorted_plain(w, target, lo0, hi0, left)
+    n = w.shape[0]
+    if w.dtype not in (I64, torch.float64):
+        raise TypeError(f"seg_searchsorted: int64 or float64, got {w.dtype}")
+    _check("seg_searchsorted.w", w, w.dtype, n)
+    _check("seg_searchsorted.target", target, w.dtype, n)
+    _check("seg_searchsorted.lo0", lo0, I64, n)
+    _check("seg_searchsorted.hi0", hi0, I64, n)
+    out = torch.empty(n, dtype=I64, device=w.device)
+    native.call(
+        "seg_searchsorted", "seg_searchsorted_launch", w, target,
+        _TYPE_CODES[w.dtype], lo0, hi0, n, int(bool(left)), out,
+    )
+    seg_searchsorted.launches += 1
+    return out
+
+
+seg_searchsorted.launches = 0
+
 #: the wrappers whose kernels the main path must launch
 KERNELS = {
     "group_ids": group_ids,
@@ -1073,6 +1363,10 @@ KERNELS = {
     "pack_words": pack_keys,
     "seg_minmax": seg_minmax,
     "order_words": order_words,
+    "window_peers": window_peers,
+    "range_sum": range_sum,
+    "range_minmax": range_minmax,
+    "seg_searchsorted": seg_searchsorted,
 }
 
 

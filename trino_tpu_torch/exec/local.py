@@ -10,10 +10,12 @@ FULL equi-Join (dynamic filtering for inner joins, residual filters),
 the cross join,
 SemiJoin (IN, NOT IN, EXISTS and NOT EXISTS, with and without a
 correlated residual filter, IN with three-valued NULL semantics),
-Exchange, Values and Output. Every other node type raises
-NotImplementedError naming it. PyTorch runs eagerly, so there is no jit
-cache and no program catalog; the learned aggregate capacities and
-filter selectivities are kept per executor as in the JAX package.
+Window (``exec/window.py``), GroupId (grouping sets), Union (INTERSECT
+and EXCEPT plan as a union below an aggregate), Exchange, Values and
+Output. Every other node type raises NotImplementedError naming it.
+PyTorch runs eagerly, so there is no jit cache and no program catalog;
+the learned aggregate capacities and filter selectivities are kept per
+executor as in the JAX package.
 """
 
 from __future__ import annotations
@@ -642,6 +644,141 @@ class LocalExecutor:
             # exact single-key expansion emits matches as a dense prefix
             out.known_rows = total
             out.packed = True
+        return out
+
+    # ---- window / set operations -----------------------------------------
+
+    def _GroupId(self, node: P.GroupId) -> Page:
+        """Replicate the input once per grouping set with NULLed
+        non-member keys and a BIGINT set-id column: one concatenation of
+        k masked copies, padded to the capacity bucket; the aggregation
+        above runs over the result."""
+        src = self.execute(node.source)
+        k = len(node.grouping_sets)
+        in_cap = src.capacity
+        out_cap = shapes.bucket(k * in_cap)
+        keyed = set(s for st in node.grouping_sets for s in st)
+        pad = out_cap - k * in_cap
+        dev = self.device
+
+        def tile(pieces, fill):
+            if pad:
+                pieces = pieces + [torch.full(
+                    (pad,) + tuple(pieces[0].shape[1:]), fill,
+                    dtype=pieces[0].dtype, device=dev,
+                )]
+            return torch.cat(pieces)
+
+        names, cols = [], []
+        for name, col in zip(src.names, src.columns):
+            if name in keyed:
+                valid_full = (
+                    col.valid if col.valid is not None
+                    else torch.ones(in_cap, dtype=torch.bool, device=dev)
+                )
+                none = torch.zeros(in_cap, dtype=torch.bool, device=dev)
+                valid = tile(
+                    [valid_full if name in st else none
+                     for st in node.grouping_sets],
+                    False,
+                )
+            else:
+                valid = (
+                    None if col.valid is None else tile([col.valid] * k, False)
+                )
+            names.append(name)
+            cols.append(Column(
+                col.type, tile([col.data] * k, 0), valid, col.dictionary,
+                col.hash_pool,
+            ))
+        names.append(node.id_symbol)
+        cols.append(Column(T.BIGINT, tile(
+            [torch.full((in_cap,), i, dtype=I64, device=dev) for i in range(k)],
+            0,
+        )))
+        mask = tile([src.mask] * k, False)
+        return Page(names, cols, mask, known_rows=src.num_rows() * k)
+
+    def _Window(self, node: P.Window) -> Page:
+        """Run the window program over the source page and append one
+        column per window function. Building the program is host work of
+        microseconds (PyTorch runs eagerly), so nothing is cached."""
+        from trino_tpu_torch.exec.window import build_window_program
+
+        page = self.execute(node.source)
+        hashed = frozenset(
+            n for n, c in zip(page.names, page.columns)
+            if c.hash_pool is not None
+        )
+        fn, out_meta = build_window_program(
+            node,
+            {n: c.type for n, c in zip(page.names, page.columns)},
+            {n: c.dictionary for n, c in zip(page.names, page.columns)},
+            page.capacity, hashed,
+        )
+        env2 = fn(self._env(page), page.mask)
+        names = list(page.names)
+        cols = list(page.columns)
+        for sym, t, d in out_meta:
+            names.append(sym)
+            cols.append(Column(t, *env2[sym], d))
+        return Page(
+            names, cols, page.mask,
+            known_rows=page.known_rows, packed=page.packed,
+        )
+
+    def _Union(self, node: P.Union) -> Page:
+        """Concatenate the branches' pages. VARCHAR dictionaries merge per
+        output column (one sorted dictionary, each branch remapped by a
+        gather); hash-coded VARCHAR cannot merge and raises."""
+        from trino_tpu_torch.exec.aggregates import _limb_encode
+        from trino_tpu_torch.page import _remap
+
+        pages = [self.execute(s) for s in node.all_sources]
+        for sym, src_syms in node.symbol_map.items():
+            cols = [p.column(s) for p, s in zip(pages, src_syms)]
+            if any(c.hash_pool is not None for c in cols):
+                raise NotImplementedError(
+                    "hash-coded varchar columns cannot merge across "
+                    "UNION branches (no shared dictionary)"
+                )
+            if any(c.dictionary is not None for c in cols):
+                # a branch without a dictionary (typed NULL literals, a
+                # global grouping set's NULLed keys) has an empty one
+                empty = np.asarray([], dtype=object)
+                merged = StringDictionary(np.unique(np.concatenate([
+                    c.dictionary.values if c.dictionary is not None else empty
+                    for c in cols
+                ])))
+                for p, s, c in zip(pages, src_syms, cols):
+                    vals = (
+                        c.dictionary.values if c.dictionary is not None
+                        else empty
+                    )
+                    remap = np.searchsorted(merged.values, vals).astype(np.int32)
+                    p.columns[p.names.index(s)] = _remap(c, remap, merged)
+        names, cols = [], []
+        for sym, src_syms in node.symbol_map.items():
+            parts = [
+                (p.column(s).data, p.column(s).valid)
+                for p, s in zip(pages, src_syms)
+            ]
+            out_t = node.outputs[sym]
+            if isinstance(out_t, T.DecimalType) and out_t.is_long:
+                # a branch may carry the column 1-D (typed NULL literals,
+                # short-encoded values): widen it to two limbs
+                parts = [
+                    (d if d.dim() == 2 else _limb_encode(d.to(I64)), v)
+                    for d, v in parts
+                ]
+            data, valid = _concat_sections(parts)
+            ref = pages[0].column(src_syms[0])
+            names.append(sym)
+            cols.append(Column(out_t, data, valid, ref.dictionary))
+        mask = torch.cat([p.mask for p in pages])
+        out = Page(names, cols, mask)
+        if all(p.known_rows is not None for p in pages):
+            out.known_rows = sum(p.known_rows for p in pages)
         return out
 
     # ---- semi join -------------------------------------------------------

@@ -38,6 +38,10 @@ SOURCES = {
     "pack_words": "pack_words.cu",
     "seg_minmax": "seg_minmax.cu",
     "order_words": "order_words.cu",
+    "window_peers": "window_peers.cu",
+    "range_sum": "range_sum.cu",
+    "range_minmax": "range_minmax.cu",
+    "seg_searchsorted": "seg_searchsorted.cu",
 }
 
 NVCC_FLAGS = [
@@ -71,9 +75,10 @@ def _stale(name: str) -> bool:
     lib = _lib_path(name)
     if not os.path.exists(lib):
         return True
+    headers = [f for f in os.listdir(CSRC) if f.endswith(".cuh")]
     newest = max(
         os.path.getmtime(os.path.join(CSRC, f))
-        for f in (SOURCES[name], "common.cuh")
+        for f in (SOURCES[name], *headers)
     )
     return os.path.getmtime(lib) < newest
 

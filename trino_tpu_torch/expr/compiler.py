@@ -184,6 +184,8 @@ class _Compiler:
             if isinstance(s_t, (T.DoubleType, T.RealType)):
                 return wrap(lambda x: torch.floor(x + 0.5).to(dtype))
             return wrap(lambda x: x.to(dtype))
+        if isinstance(d_t, T.DateType) and isinstance(s_t, T.VarcharType):
+            return self._varchar_to_date(src)
         if isinstance(d_t, T.DateType) and isinstance(s_t, T.TimestampType):
             return wrap(
                 lambda x: torch.div(
@@ -193,6 +195,42 @@ class _Compiler:
         if isinstance(d_t, T.TimestampType) and isinstance(s_t, T.DateType):
             return wrap(lambda x: x.to(I64) * T.MICROS_PER_DAY)
         raise NotImplementedError(f"_cast: {s_t} -> {d_t}")
+
+    def _varchar_to_date(self, src: CompiledExpr) -> CompiledExpr:
+        """cast(varchar as date): the dictionary parsed once on the host,
+        then a gather by code on the device; unparseable values become
+        NULL (port of the JAX compiler's varchar -> date cast)."""
+        if src.dictionary is None:
+            raise NotImplementedError(
+                "cast varchar -> date requires a dictionary input"
+            )
+        vals, bad = [], []
+        for v in src.dictionary.values:
+            try:
+                vals.append(T.parse_date(str(v)))
+                bad.append(False)
+            except (ValueError, TypeError):
+                vals.append(0)
+                bad.append(True)
+        n = max(len(vals), 1)
+        table = torch.from_numpy(
+            np.asarray(vals + [0] * (n - len(vals)), dtype=np.int32)
+        ).to(self.device)
+        badt = torch.from_numpy(
+            np.asarray(bad + [True] * (n - len(bad)), dtype=np.bool_)
+        ).to(self.device)
+        has_bad = any(bad)
+
+        def ev(env):
+            data, valid = src.fn(env)
+            code = data.long().clamp(0, n - 1)
+            out = table[code]
+            if has_bad:
+                okv = ~badt[code]
+                valid = okv if valid is None else (valid & okv)
+            return out, valid
+
+        return CompiledExpr(ev, T.DATE, is_literal=src.is_literal)
 
     def _limb_rescale_cast(
         self, src: CompiledExpr, s_t: "T.DecimalType", d_t: "T.DecimalType"
@@ -276,9 +314,96 @@ class _Compiler:
             return CompiledExpr(
                 lambda env: (lambda d, v: (-d, v))(*a.fn(env)), expr.type
             )
+        if name == "nullif":
+            # args: (a, a = b): NULL where the comparison is TRUE (an
+            # unknown comparison keeps a)
+            a = self.compile(expr.args[0])
+            cond = self.compile(expr.args[1])
+
+            def ev_nullif(env):
+                d, v = a.fn(env)
+                cd, cv = cond.fn(env)
+                nullify = cd if cv is None else (cd & cv)
+                nv = ~nullify if v is None else (v & ~nullify)
+                return d, nv
+
+            return CompiledExpr(ev_nullif, expr.type, a.dictionary)
+        if name == "concat_cols":
+            return self._concat_cols(expr)
+        if name == "round":
+            return self._round(expr)
         if name in _SIMPLE_FNS:
             return self._simple(expr)
         raise NotImplementedError(f"function {name} not implemented")
+
+    def _concat_cols(self, expr: Call) -> CompiledExpr:
+        """varchar || varchar between two dictionary-backed columns: the
+        result dictionary is the (bounded) cross product of the operand
+        dictionaries; the device op is one gather by the composite code
+        a * |B| + b."""
+        a = self.compile(expr.args[0])
+        b = self.compile(expr.args[1])
+        da, db = a.dictionary, b.dictionary
+        if da is None or db is None:
+            raise NotImplementedError(
+                "|| requires dictionary-backed varchar operands"
+            )
+        na, nb = max(len(da), 1), max(len(db), 1)
+        if na * nb > 4_000_000:
+            raise NotImplementedError(
+                f"|| dictionary product too large ({na}x{nb})"
+            )
+        pairs = np.asarray(
+            [str(x) + str(y) for x in da.values for y in db.values] or [""],
+            dtype=object,
+        )
+        new_dict, codes = StringDictionary.from_strings(pairs)
+        remap = torch.from_numpy(codes.astype(np.int32)).to(self.device)
+
+        def ev(env):
+            ad, av = a.fn(env)
+            bd, bv = b.fn(env)
+            code = (ad.long() * nb + bd.long()).clamp(0, na * nb - 1)
+            return remap[code], _and_valid(av, bv)
+
+        return CompiledExpr(ev, T.VARCHAR, new_dict)
+
+    def _round(self, expr: Call) -> CompiledExpr:
+        """round(x[, n]): half away from zero (not banker's rounding).
+        Decimal inputs round on the unscaled integer; the digit count
+        must be a constant."""
+        a = self.compile(expr.args[0])
+        ndig = 0
+        if len(expr.args) > 1:
+            d = expr.args[1]
+            if not isinstance(d, Literal) or d.value is None:
+                raise NotImplementedError(
+                    "round() digit count must be a constant"
+                )
+            ndig = int(d.value)
+        out_t = expr.type
+
+        def ev(env):
+            x, v = a.fn(env)
+            if isinstance(a.type, T.DecimalType):
+                if a.type.is_long:
+                    raise NotImplementedError("round() of a decimal(38)")
+                s = a.type.scale
+                if ndig >= s:
+                    return x, v
+                m = 10 ** (s - ndig)
+                return _div_round_half_up(x, m) * m, v
+            if a.type.is_integer:
+                return x, v
+            scale = 10.0 ** ndig
+            y = x * scale
+            return (
+                (torch.sign(y) * torch.floor(torch.abs(y) + 0.5) / scale)
+                .to(torch_dtype(out_t.np_dtype)),
+                v,
+            )
+
+        return CompiledExpr(ev, out_t)
 
     def _logic(self, expr: Call) -> CompiledExpr:
         parts = [self.compile(a) for a in expr.args]

@@ -1,6 +1,11 @@
 """Exact numpy implementations of TPC-H Q1, Q2, Q3, Q4, Q9, Q11, Q13,
-Q14, Q16, Q17, Q18, Q20, Q21 and Q22, and of one full outer join
-(``FJ_SQL``).
+Q14, Q16, Q17, Q18, Q20, Q21 and Q22, of one full outer join
+(``FJ_SQL``), and of the TPC-DS statements the card runs: q3 (``ds_q03``),
+q98 (``ds_q98``), q86 (``ds_q86``), q51 at a chosen month window
+(``q51_sql``, ``ds_q51``) with the totals of its windowed relation
+(``q51_totals_sql``, ``ds_q51_totals``) and a RANGE offset window
+(``RANGE7_SQL``, ``ds_range7``). Ranks, running sums and RANGE frames are
+computed with numpy alone.
 
 An independent check of the engine's answers: the same generated data
 (``connectors.tpch.generator.TpchData``: dates as epoch days, decimals
@@ -30,7 +35,8 @@ from trino_tpu_torch import types as T
 __all__ = [
     "q01", "q02", "q03", "q04", "q09", "q11", "q13", "q14", "q16", "q17",
     "q18", "q20", "q21", "q22", "fj", "FJ_SQL", "q11_sql", "q18_sql",
-    "rows_match",
+    "rows_match", "ds_q03", "ds_q98", "ds_q86", "ds_q51", "ds_q51_totals",
+    "ds_range7", "q51_sql", "q51_totals_sql", "RANGE7_SQL",
 ]
 
 #: a full outer join with unmatched rows on both sides (no TPC-H query
@@ -323,6 +329,13 @@ def rows_match(name: str, got, want) -> bool:
             [r[1] for r in got] == [r[1] for r in want]
             and sorted(got) == sorted(want)
         )
+    if name in _ORDER_KEYS:
+        # ties in the ORDER BY keys leave the rows' order open: the keys
+        # must agree in order, the rows as a multiset
+        key = _ORDER_KEYS[name]
+        if [key(r) for r in got] != [key(r) for r in want]:
+            return False
+        got, want = sorted(got, key=_row_key), sorted(want, key=_row_key)
     for g, w in zip(got, want):
         if len(g) != len(w):
             return False
@@ -603,4 +616,313 @@ def q22(data) -> list[tuple]:
     counts = np.bincount(inv, minlength=len(codes))
     return [
         (str(c), int(n), _dec(int(s_), 2)) for c, n, s_ in zip(codes, counts, sums)
+    ]
+
+
+# ---- TPC-DS ------------------------------------------------------------------
+
+#: the ORDER BY keys of the TPC-DS statements whose keys do not fix every
+#: row's position (q3's brand name, q98's price)
+_ORDER_KEYS = {
+    "ds_q03": lambda r: (r[0], r[3], r[1]),
+    "ds_q98": lambda r: (r[2], r[3], r[0], r[1]),
+}
+
+
+def _row_key(row):
+    return tuple((v is None, str(v)) for v in row)
+
+
+#: a RANGE offset window over the whole of store_sales: per store, each
+#: sale's 7-day trailing sum of net paid, summed again
+RANGE7_SQL = """select ss_store_sk, count(*), sum(w)
+from (select ss_store_sk,
+             sum(ss_net_paid) over (partition by ss_store_sk order by ss_sold_date_sk
+                                    range between 6 preceding and current row) w
+      from store_sales)
+group by ss_store_sk
+order by 1"""
+
+#: q51's month window as the TPC-DS text writes it (1200-1211, months
+#: counted from 1900); this generator counts d_month_seq from 1990
+_Q51_MONTHS = "1200 AND (1200 + 11)"
+
+
+def q51_sql(month_lo: int = 108) -> str:
+    """TPC-DS q51 over the twelve months from ``month_lo`` (108 = 1999
+    in this generator's d_month_seq)."""
+    from trino_tpu_torch.connectors.tpcds.queries import QUERIES
+
+    sql = QUERIES["q51"]
+    if sql.count(_Q51_MONTHS) != 2:
+        raise ValueError("q51 text has no month window to replace")
+    m = int(month_lo)
+    return sql.replace(_Q51_MONTHS, f"{m} AND ({m} + 11)")
+
+
+def q51_totals_sql(month_lo: int = 108) -> str:
+    """count(*), the non-NULL counts and the sums of web_cumulative and
+    store_cumulative over q51's windowed relation ``y`` (every row of it,
+    not only the first 100 that pass its filter)."""
+    sql = q51_sql(month_lo)
+    head, sep, tail = sql.partition("SELECT *\nFROM\n  (")
+    inner, sep2, _ = tail.rpartition(")  y")
+    if not sep or not sep2:
+        raise ValueError("q51 text does not have its outer SELECT over y")
+    return (
+        head + "SELECT count(*), count(web_cumulative), "
+        "count(store_cumulative), sum(web_cumulative), "
+        "sum(store_cumulative)\nFROM (" + inner + ") y"
+    )
+
+
+def _ds(data, table: str, name: str) -> np.ndarray:
+    return np.asarray(data.column(table, name))
+
+
+def _dim_rows(keys: np.ndarray, want: np.ndarray):
+    """(row position in the dimension, found) of each fact key."""
+    sorter = np.argsort(keys, kind="stable")
+    at = np.searchsorted(keys, want, sorter=sorter).clip(0, len(keys) - 1)
+    rows = sorter[at]
+    return rows, keys[rows] == want
+
+
+def _grouped(cols, vals: np.ndarray):
+    """Exact per-group sums of int64 ``vals`` grouped by the key arrays
+    ``cols``: (unique key arrays, sums)."""
+    keys = np.rec.fromarrays(cols)
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = _group_sums(inv.reshape(-1), vals, len(uniq))
+    return [uniq[f] for f in uniq.dtype.names], sums
+
+
+def ds_q03(data) -> list[tuple]:
+    """TPC-DS q3: brand revenue of manufacturer 128 in November, by
+    year."""
+    d_sk = _ds(data, "date_dim", "d_date_sk")
+    ss_date = _ds(data, "store_sales", "ss_sold_date_sk")
+    ss_item = _ds(data, "store_sales", "ss_item_sk")
+    i_sk = _ds(data, "item", "i_item_sk")
+    drow, dok = _dim_rows(d_sk, ss_date)
+    irow, iok = _dim_rows(i_sk, ss_item)
+    sel = (
+        dok & iok
+        & (_ds(data, "date_dim", "d_moy")[drow] == 11)
+        & (_ds(data, "item", "i_manufact_id")[irow] == 128)
+    )
+    year = _ds(data, "date_dim", "d_year")[drow[sel]].astype(np.int64)
+    bid = _ds(data, "item", "i_brand_id")[irow[sel]].astype(np.int64)
+    brand = _ds(data, "item", "i_brand").astype(str)[irow[sel]]
+    (gy, gb, gn), sums = _grouped(
+        [year, bid, brand], _ds(data, "store_sales", "ss_ext_sales_price")[sel]
+    )
+    order = np.lexsort((gn, gb, -sums, gy))[:100]
+    return [
+        (int(gy[i]), int(gb[i]), str(gn[i]), _dec(int(sums[i]), 2))
+        for i in order
+    ]
+
+
+def ds_q98(data) -> list[tuple]:
+    """TPC-DS q98: item revenue in three categories over 31 days, with
+    its share of its class's revenue (the window sum over the groups)."""
+    lo, hi = T.parse_date("1999-02-22"), T.parse_date("1999-03-24")
+    d_sk = _ds(data, "date_dim", "d_date_sk")
+    ss_date = _ds(data, "store_sales", "ss_sold_date_sk")
+    ss_item = _ds(data, "store_sales", "ss_item_sk")
+    drow, dok = _dim_rows(d_sk, ss_date)
+    irow, iok = _dim_rows(_ds(data, "item", "i_item_sk"), ss_item)
+    day = _ds(data, "date_dim", "d_date")[drow]
+    cat_all = _ds(data, "item", "i_category").astype(str)
+    sel = (
+        dok & iok & (day >= lo) & (day <= hi)
+        & np.isin(cat_all[irow], ["Sports", "Books", "Home"])
+    )
+    r = irow[sel]
+    keys = [
+        _ds(data, "item", "i_item_id").astype(str)[r],
+        _ds(data, "item", "i_item_desc").astype(str)[r],
+        cat_all[r],
+        _ds(data, "item", "i_class").astype(str)[r],
+        _ds(data, "item", "i_current_price")[r].astype(np.int64),
+    ]
+    (g_id, g_desc, g_cat, g_cls, g_price), rev = _grouped(
+        keys, _ds(data, "store_sales", "ss_ext_sales_price")[sel]
+    )
+    cls_u, cls_inv = np.unique(g_cls, return_inverse=True)
+    cls_total = _group_sums(cls_inv.reshape(-1), rev, len(cls_u))[cls_inv.reshape(-1)]
+    ratio = np.asarray([
+        float(_dec(int(a) * 100, 2)) / float(_dec(int(b), 2))
+        for a, b in zip(rev, cls_total)
+    ])
+    order = np.lexsort((ratio, g_desc, g_id, g_cls, g_cat))[:100]
+    return [
+        (str(g_id[i]), str(g_desc[i]), str(g_cat[i]), str(g_cls[i]),
+         _dec(int(g_price[i]), 2), _dec(int(rev[i]), 2), float(ratio[i]))
+        for i in order
+    ]
+
+
+def _rank_desc(part: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """rank() over (partition by part order by vals desc), per row."""
+    order = np.lexsort((-vals, part))
+    ranks = np.empty(len(vals), dtype=np.int64)
+    prev_p = prev_v = None
+    for pos, i in enumerate(order):
+        if part[i] != prev_p:
+            start, prev_p, prev_v, r = pos, part[i], None, 0
+        if vals[i] != prev_v:
+            r, prev_v = pos - start + 1, vals[i]
+        ranks[i] = r
+    return ranks
+
+
+def ds_q86(data) -> list[tuple]:
+    """TPC-DS q86: web revenue of 1999 rolled up over (category, class),
+    ranked within each parent (grouping sets, grouping(), rank())."""
+    d_sk = _ds(data, "date_dim", "d_date_sk")
+    ws_date = _ds(data, "web_sales", "ws_sold_date_sk")
+    drow, dok = _dim_rows(d_sk, ws_date)
+    irow, iok = _dim_rows(
+        _ds(data, "item", "i_item_sk"), _ds(data, "web_sales", "ws_item_sk")
+    )
+    mseq = _ds(data, "date_dim", "d_month_seq")[drow]
+    sel = dok & iok & (mseq >= 108) & (mseq <= 119)
+    paid = _ds(data, "web_sales", "ws_net_paid")[sel]
+    cat = _ds(data, "item", "i_category").astype(str)[irow[sel]]
+    cls = _ds(data, "item", "i_class").astype(str)[irow[sel]]
+    rows = []  # (total, category, class, lochierarchy)
+    (gc, gk), sums = _grouped([cat, cls], paid)
+    rows += [(int(v), str(a), str(b), 0) for a, b, v in zip(gc, gk, sums)]
+    (gc,), sums = _grouped([cat], paid)
+    rows += [(int(v), str(a), None, 1) for a, v in zip(gc, sums)]
+    if len(paid):
+        rows.append((_exact_sum(paid), None, None, 2))
+    # rank within (lochierarchy, category of the class rows)
+    parts = np.asarray([
+        f"{r[3]}|{r[1] if r[3] == 0 else ''}" for r in rows
+    ])
+    totals = np.asarray([r[0] for r in rows], dtype=np.int64)
+    ranks = _rank_desc(parts, totals)
+
+    def sort_key(i):
+        total, c, k, loch = rows[i]
+        case = c if loch == 0 else None
+        return (-loch, case is None, case or "", ranks[i], c is None, c or "",
+                k is None, k or "")
+
+    order = sorted(range(len(rows)), key=sort_key)[:100]
+    return [
+        (_dec(rows[i][0], 2), rows[i][1], rows[i][2], rows[i][3], int(ranks[i]))
+        for i in order
+    ]
+
+
+def _segment_running(seg: np.ndarray, vals: np.ndarray, kind: str) -> np.ndarray:
+    """Running sum or max of int64 ``vals`` within runs of equal ``seg``
+    (rows already in (segment, order) order); max treats -1 as NULL and
+    keeps -1 until a value is seen (``vals`` are non-negative)."""
+    starts = np.r_[True, seg[1:] != seg[:-1]]
+    if kind == "sum":
+        cs = np.cumsum(vals)
+        base = np.maximum.accumulate(np.where(starts, np.arange(len(vals)), 0))
+        before = np.where(base > 0, cs[np.maximum(base - 1, 0)], 0)
+        return cs - before
+    sid = np.cumsum(starts) - 1
+    big = int(vals.max(initial=0)) + 2
+    if len(sid) and int(sid[-1]) * big > (1 << 62):
+        raise OverflowError("segment offsets overflow int64")
+    return np.maximum.accumulate(sid * big + vals + 1) - sid * big - 1
+
+
+def _q51_side(data, fact: str, prefix: str, months):
+    """(item, day, running sum) of web_v1 / store_v1: sales per (item,
+    day) in the month window, summed running per item by day."""
+    d_sk = _ds(data, "date_dim", "d_date_sk")
+    drow, dok = _dim_rows(d_sk, _ds(data, fact, f"{prefix}_sold_date_sk"))
+    mseq = _ds(data, "date_dim", "d_month_seq")[drow]
+    sel = dok & (mseq >= months[0]) & (mseq <= months[1])
+    item = _ds(data, fact, f"{prefix}_item_sk")[sel].astype(np.int64)
+    day = _ds(data, "date_dim", "d_date")[drow[sel]].astype(np.int64)
+    (gi, gd), sums = _grouped([item, day], _ds(data, fact, f"{prefix}_sales_price")[sel])
+    order = np.lexsort((gd, gi))
+    gi, gd, sums = gi[order], gd[order], sums[order]
+    return gi, gd, _segment_running(gi, sums, "sum")
+
+
+def _q51_y(data, month_lo: int):
+    """q51's relation y in (item_sk, d_date) order: item, day, web and
+    store running sums and their running maxima (-1 for NULL)."""
+    months = (month_lo, month_lo + 11)
+    wi, wd, wv = _q51_side(data, "web_sales", "ws", months)
+    si, sd, sv = _q51_side(data, "store_sales", "ss", months)
+    item = np.concatenate([wi, si])
+    day = np.concatenate([wd, sd])
+    keys = np.rec.fromarrays([item, day])
+    uniq, inv = np.unique(keys, return_inverse=True)
+    inv = inv.reshape(-1)
+    web = np.full(len(uniq), -1, dtype=np.int64)
+    store = np.full(len(uniq), -1, dtype=np.int64)
+    web[inv[: len(wi)]] = wv
+    store[inv[len(wi):]] = sv
+    ui, ud = uniq["f0"], uniq["f1"]
+    return (
+        ui, ud, web, store,
+        _segment_running(ui, web, "max"), _segment_running(ui, store, "max"),
+    )
+
+
+def _null_dec(v) -> Decimal | None:
+    return None if v < 0 else _dec(int(v), 2)
+
+
+def ds_q51(data, month_lo: int = 108) -> list[tuple]:
+    """TPC-DS q51 (``q51_sql(month_lo)``): the first 100 (item, day) rows,
+    in order, whose running web maximum exceeds the running store
+    maximum."""
+    ui, ud, web, store, wmax, smax = _q51_y(data, month_lo)
+    keep = np.nonzero((wmax >= 0) & (smax >= 0) & (wmax > smax))[0][:100]
+    return [
+        (int(ui[i]), T.format_date(int(ud[i])), _null_dec(web[i]),
+         _null_dec(store[i]), _null_dec(wmax[i]), _null_dec(smax[i]))
+        for i in keep
+    ]
+
+
+def ds_q51_totals(data, month_lo: int = 108) -> list[tuple]:
+    """``q51_totals_sql(month_lo)``: count(*), count(web_cumulative),
+    count(store_cumulative), sum(web_cumulative), sum(store_cumulative)
+    over y."""
+    _, _, _, _, wmax, smax = _q51_y(data, month_lo)
+    w, s = wmax[wmax >= 0], smax[smax >= 0]
+    return [(
+        len(wmax), len(w), len(s),
+        _dec(_exact_sum(w), 2) if len(w) else None,
+        _dec(_exact_sum(s), 2) if len(s) else None,
+    )]
+
+
+def ds_range7(data) -> list[tuple]:
+    """``RANGE7_SQL``: per store, the count of sales and the sum over its
+    sales of each one's trailing 7-day net paid (the sale's own day and
+    the 6 before it, all of the store's sales on those days)."""
+    store = _ds(data, "store_sales", "ss_store_sk").astype(np.int64)
+    day = _ds(data, "store_sales", "ss_sold_date_sk").astype(np.int64)
+    paid = _ds(data, "store_sales", "ss_net_paid").astype(np.int64)
+    stores, sidx = np.unique(store, return_inverse=True)
+    lo = int(day.min(initial=0))
+    span = int(day.max(initial=0)) - lo + 1
+    at = sidx.reshape(-1) * span + (day - lo)
+    size = len(stores) * span
+    cnt = np.bincount(at, minlength=size).astype(np.int64).reshape(-1, span)
+    per_day = _group_sums(at, paid, size).reshape(-1, span)
+    cs = np.cumsum(per_day, axis=1)
+    shifted = np.zeros_like(cs)
+    shifted[:, 7:] = cs[:, :-7]
+    trailing = cs - shifted  # each day's own and the 6 before it
+    totals = (cnt * trailing).sum(axis=1)
+    return [
+        (int(st), int(c), _dec(int(t), 2))
+        for st, c, t in zip(stores, cnt.sum(axis=1), totals)
     ]

@@ -12,6 +12,14 @@ NOT LIKE with ``_`` and ``%``, ``regexp_like``, ``substr``, ``lower``,
 global, over NULLs and under a NULL-literal GROUP BY key, and cross
 joins against a scalar subquery.
 
+``WINDOW_STATEMENTS`` exercise set operations (UNION ALL, UNION,
+INTERSECT, EXCEPT, chained and nested) and window functions (ranks,
+running and partition sums, ROWS frames, lead/lag, first/last/nth
+value, running min/max, windows over aggregates, ntile, percent_rank,
+cume_dist and RANGE offset frames over integer, decimal and nullable
+keys, ascending and descending), and a float window sum whose small
+partition sits beside a huge one.
+
 The differential tests (port against the JAX package and sqlite) and
 the card tests (cuda against cpu) share them.
 """
@@ -21,7 +29,9 @@ from __future__ import annotations
 from trino_tpu_torch.connectors.tpch.queries import QUERIES
 from trino_tpu_torch.testing.numpy_reference import FJ_SQL, q18_sql
 
-__all__ = ["JOIN_STATEMENTS", "STRING_STATEMENTS", "SQLITE_FORMS"]
+__all__ = [
+    "JOIN_STATEMENTS", "STRING_STATEMENTS", "WINDOW_STATEMENTS", "SQLITE_FORMS",
+]
 
 _IN_PROBE = "select _col0 from (values 1, 3, null) a where _col0 "
 _IN_PROBE_SQLITE = (
@@ -137,6 +147,168 @@ STRING_STATEMENTS = {
     ),
 }
 
+_FLOAT_ROWS = (
+    "(1, 1, 1e18), (1, 2, 1e18), (1, 3, 1e18), "
+    "(2, 1, 1.0), (2, 2, 2.0), (2, 3, 3.0)"
+)
+
+WINDOW_STATEMENTS = {
+    "union_all": (
+        "select n_regionkey from nation union all "
+        "select r_regionkey from region"
+    ),
+    "union_distinct": (
+        "select n_regionkey from nation union "
+        "select r_regionkey + 2 from region order by 1"
+    ),
+    "union_multi_column_types": (
+        "select n_name, n_regionkey from nation union "
+        "select r_name, r_regionkey * 1.5 from region"
+    ),
+    "intersect": (
+        "select l_linestatus from lineitem intersect "
+        "select o_orderstatus from orders"
+    ),
+    "except": (
+        "select o_orderstatus from orders except "
+        "select l_linestatus from lineitem"
+    ),
+    "chained_setops": (
+        "select n_regionkey from nation "
+        "union select r_regionkey from region except select 1"
+    ),
+    "union_in_subquery": (
+        "select count(*) from (select n_nationkey k from nation "
+        "union all select r_regionkey from region)"
+    ),
+    "union_with_aggregation_above": (
+        "select k, count(*) from (select n_regionkey k from nation "
+        "union all select r_regionkey from region) group by k order by k"
+    ),
+    "row_number": (
+        "select o_orderkey, row_number() over "
+        "(partition by o_custkey order by o_orderkey) "
+        "from orders where o_custkey < 20"
+    ),
+    "rank_dense_rank": (
+        "select c_custkey, rank() over (order by c_nationkey), "
+        "dense_rank() over (order by c_nationkey) "
+        "from customer where c_custkey <= 50"
+    ),
+    "running_sum": (
+        "select o_orderkey, sum(o_totalprice) over "
+        "(partition by o_custkey order by o_orderkey) "
+        "from orders where o_custkey < 10"
+    ),
+    "partition_total": (
+        "select o_orderkey, count(*) over (partition by o_custkey), "
+        "avg(o_totalprice) over (partition by o_custkey) "
+        "from orders where o_custkey < 10"
+    ),
+    "global_window": "select n_name, sum(n_regionkey) over () from nation",
+    "rows_frame": (
+        "select o_orderkey, sum(o_shippriority + 1) over "
+        "(order by o_orderkey rows between 2 preceding and 1 following) "
+        "from orders where o_orderkey < 200"
+    ),
+    "lead_lag": (
+        "select o_orderkey, lag(o_orderkey) over (order by o_orderkey), "
+        "lead(o_orderkey, 2) over (order by o_orderkey) "
+        "from orders where o_orderkey < 100"
+    ),
+    "first_last_value": (
+        "select o_orderkey, first_value(o_orderkey) over "
+        "(partition by o_custkey order by o_orderkey), "
+        "last_value(o_orderkey) over (partition by o_custkey "
+        "order by o_orderkey "
+        "rows between unbounded preceding and unbounded following) "
+        "from orders where o_custkey < 10"
+    ),
+    "min_max_running": (
+        "select o_orderkey, "
+        "min(o_totalprice) over (partition by o_custkey order by o_orderkey), "
+        "max(o_totalprice) over (partition by o_custkey order by o_orderkey) "
+        "from orders where o_custkey < 10"
+    ),
+    "window_over_aggregate": (
+        "select o_custkey, count(*) cnt, "
+        "rank() over (order by count(*) desc, o_custkey) "
+        "from orders where o_custkey < 30 group by o_custkey"
+    ),
+    "window_in_expression": (
+        "select o_orderkey, "
+        "o_totalprice - avg(o_totalprice) over (partition by o_custkey) "
+        "from orders where o_custkey < 10"
+    ),
+    "window_varchar_order": (
+        "select n_name, row_number() over (order by n_name desc) from nation"
+    ),
+    "ntile": (
+        "select c_custkey, ntile(4) over (order by c_custkey) "
+        "from customer where c_custkey <= 20"
+    ),
+    "percent_rank_cume_dist": (
+        "select o_custkey, o_orderkey, "
+        "percent_rank() over (partition by o_custkey order by o_totalprice), "
+        "cume_dist() over (partition by o_custkey order by o_totalprice) "
+        "from orders order by o_orderkey"
+    ),
+    "percent_rank_single_row_partitions": (
+        "select o_orderkey, "
+        "percent_rank() over (partition by o_orderkey order by o_totalprice), "
+        "cume_dist() over (partition by o_orderkey order by o_totalprice) "
+        "from orders order by o_orderkey limit 50"
+    ),
+    "nth_value": (
+        "select o_orderkey, nth_value(o_totalprice, 2) over ("
+        "partition by o_custkey order by o_orderdate "
+        "rows between unbounded preceding and unbounded following) "
+        "from orders order by o_orderkey"
+    ),
+    "nth_value_default_frame": (
+        "select o_orderkey, nth_value(o_orderkey, 3) over ("
+        "partition by o_custkey order by o_orderkey) "
+        "from orders order by o_orderkey"
+    ),
+    "range_offset_frame_sum": (
+        "select o_orderkey, sum(o_shippriority + 1) over ("
+        "partition by o_custkey order by o_orderkey "
+        "range between 5 preceding and 5 following), "
+        "count(*) over (partition by o_custkey order by o_orderkey "
+        "range between 10 preceding and current row) "
+        "from orders order by o_orderkey"
+    ),
+    "range_offset_frame_desc": (
+        "select o_orderkey, count(*) over ("
+        "partition by o_custkey order by o_orderkey desc "
+        "range between 8 preceding and 4 following) "
+        "from orders order by o_orderkey"
+    ),
+    "range_offset_following_only": (
+        "select o_orderkey, sum(o_shippriority + 1) over ("
+        "partition by o_custkey order by o_orderkey "
+        "range between 3 following and 9 following) "
+        "from orders order by o_orderkey"
+    ),
+    "range_offset_decimal_key": (
+        "select o_orderkey, count(*) over ("
+        "partition by o_custkey order by o_totalprice "
+        "range between 10000 preceding and 10000 following) "
+        "from orders order by o_orderkey"
+    ),
+    "range_offset_null_keys": (
+        "select o_orderkey, count(*) over (partition by o_custkey "
+        "order by nullif(o_shippriority, 0) "
+        "range between 1 preceding and 1 following) "
+        "from orders order by o_orderkey limit 500"
+    ),
+    "float_sum_cross_partition": (
+        "select _col0, _col1, sum(_col2) over "
+        "(partition by _col0 order by _col1) "
+        f"from (values {_FLOAT_ROWS}) order by 1, 2"
+    ),
+}
+
 #: sqlite forms of the statements over ``values`` lists (sqlite names
 #: their columns ``column1``, the engines ``_col0``) and of the string
 #: functions sqlite lacks
@@ -163,5 +335,10 @@ SQLITE_FORMS = {
     "not_in_empty": (
         _IN_PROBE_SQLITE
         + "not in (select column1 from (values (1), (2)) where column1 > 5)"
+    ),
+    "float_sum_cross_partition": (
+        "select column1, column2, sum(column3) over "
+        "(partition by column1 order by column2) "
+        f"from (values {_FLOAT_ROWS}) order by 1, 2"
     ),
 }
