@@ -11,53 +11,64 @@ Run from the repository root, with no arguments:
 3. Kernel phases: each kernel (K1 group_ids, K2 seg_sum, K3 join_probe,
    K4 expand_matches, K5 range_any, K6 scatter_any, K7 hash_keys, K8
    pack_words, K9 seg_minmax, K10 order_words, W1 window_peers, W2
-   range_sum, W3 range_minmax, W4 seg_searchsorted) runs on the card at
-   the main path's shapes (TPC-H SF10 scale: 60M rows with 4 and with
-   1.5M groups, and 8M partsupp rows in 2M groups; a 15M-row build side
-   against a 60M-row probe; 15M probe rows of 1-7 matches each, ~60M
-   expanded positions, also with one hot probe row owning 10% of them;
-   60M indices into 15M slots; 60M rows of two and of three join-key
-   parts; 60M rows of one and of three GROUP BY keys to pack; 15M orders
-   rows of two ORDER BY keys. TPC-DS SF10 scale: 28.8M store_sales rows
-   in 120 store partitions under a RANGE 6 preceding frame, also with a
-   float64 key and values holding NaN, -0.0 and a partition of 1e18s;
-   q51's 5.5M rows in 180K item partitions of decimal(38,2) limbs), is
-   held against its plain torch version on the same inputs (integers,
-   booleans, positions, min/max and sort words exactly, float64 group
-   sums to relative 1e-12 and float64 frame sums to relative 1e-9 each;
-   K1's representative flags and K10's permutation too), and is timed
-   beside the plain version, one PyTorch library call that computes the
-   same function where there is one, and the least time the card could
-   take (bytes each input read once and each output written once, over
-   3.35 TB/s of HBM; K5 counts the out_live bytes up to each range's
-   first live position, where its scan stops). Beside K1's Q1 case,
-   ``stage._presort_shared``'s stacked gather of five int64 columns is
-   timed against one gather per column.
-4. Main path, TPC-H: ``QueryRunner.tpch("sf10")`` on cuda runs TPC-H
-   Q1, Q3, Q18, Q4, Q17, Q21, a full outer join and Q2, Q9, Q11, Q13,
-   Q14, Q16, Q20, Q22 (tables resident on the card; Q11's FRACTION is
-   0.0001 / SF, as TPC-H sets it). Its SF1 runs were dropped to keep the
-   script inside its time limit once the TPC-DS path joined it. Rows must equal the exact numpy reference
+   range_sum, W3 range_minmax, W4 seg_searchsorted, A1 hll_registers, A2
+   hll_estimate, A3 seg_arg_extreme) runs on the card at the main path's
+   shapes (TPC-H SF10 scale: 60M rows with 4 and with 1.5M groups, and 8M
+   partsupp rows in 2M groups; a 15M-row build side against a 60M-row
+   probe; 15M probe rows of 1-7 matches each, ~60M expanded positions,
+   also with one hot probe row owning 10% of them; 60M indices into 15M
+   slots; 60M rows of two and of three join-key parts; 60M rows of one
+   and of three GROUP BY keys to pack; 15M orders rows of two ORDER BY
+   keys. TPC-DS SF10 scale: 28.8M store_sales rows in 120 store
+   partitions under a RANGE 6 preceding frame, also with a float64 key
+   and values holding NaN, -0.0 and a partition of 1e18s; q51's 5.5M rows
+   in 180K item partitions of decimal(38,2) limbs; 28.8M store_sales rows
+   into HLL registers globally (4096, also with every row one hot value)
+   and in 180K items (512), the estimates of those 180K x 512 registers,
+   and the arg-extreme of 28.8M rows in 180K and in 120 groups over int64
+   and float64 keys with ties, NaN, -0.0 and groups with no contributing
+   row), is held against its plain torch version on the same inputs
+   (integers, booleans, positions, registers, estimates, min/max and sort
+   words exactly, float64 group sums to relative 1e-12 and float64 frame
+   sums to relative 1e-9 each; K1's representative flags and K10's
+   permutation too), and is timed beside the plain version, one PyTorch
+   library call that computes the same function where there is one, and
+   the least time the card could take (bytes each input read once and
+   each output written once, over 3.35 TB/s of HBM; K5 counts the
+   out_live bytes up to each range's first live position, where its scan
+   stops). Beside K1's Q1 case, ``stage._presort_shared``'s stacked
+   gather of five int64 columns is timed against one gather per column,
+   and ``kernels.count_true`` (a torch sum) over a 60M-row mask.
+4. Main path, TPC-H: ``QueryRunner.tpch("sf1")`` on cuda runs TPC-H Q1,
+   Q3, Q18, Q4, Q17, Q21, a full outer join and Q2, Q9, Q11, Q13, Q14,
+   Q16, Q20, Q22 (tables resident on the card; Q11's FRACTION is 0.0001 /
+   SF, as TPC-H sets it); ``QueryRunner.tpch("sf10")`` runs Q1, Q3 and
+   Q18 (``SF10_QUERIES``; the other SF10 runs were cut to keep the script
+   inside its time limit). Rows must equal the exact numpy reference
    (``trino_tpu_torch.testing.numpy_reference.rows_match``: Q14's and
-   Q17's one DOUBLE to relative 1e-12), cold and in 3 warm runs. Every
-   query runs under ``query_max_memory_per_node``'s default, except Q9 at
-   SF10, which must first fail under it with ExceededMemoryLimitError
-   (the port has no spill tier yet) and then runs with the cap raised.
+   Q17's one DOUBLE to relative 1e-12), cold and in 3 warm runs; one more
+   warm run stops at the result page, before the rows are built.
 5. Main path, TPC-DS: the TPC-H runner is released, then
    ``QueryRunner.tpcds("sf1")`` and ``QueryRunner.tpcds("sf10")`` run
    q3, q98, q51 over 1999 (its text's months 1200-1211 count from 1900;
    this generator counts from 1990) and the totals of its windowed
-   relation, q86 (ROLLUP, grouping(), rank()) and a RANGE offset window
-   over all of store_sales (``numpy_reference.RANGE7_SQL``), each held
-   against its exact numpy reference (q98's DOUBLE ratio to relative
-   1e-12), cold and in 3 warm runs; the peak device memory of each
-   scale is printed. A statement whose join exceeds
-   ``query_max_memory_per_node``'s default raises ExceededMemoryLimitError
-   (no spill tier yet) and then runs with the cap at 64GB; the output
-   says which. Each path runs with every kernel's launch count set
-   to 0 just before it: K1-K10 must be launched on the TPC-H path and
-   W1-W4 on the TPC-DS path; the launches of each query's runs are
-   printed.
+   relation, q86 (ROLLUP, grouping(), rank()), a RANGE offset window
+   over all of store_sales (``numpy_reference.RANGE7_SQL``) and the
+   aggregate functions' statements (``statements.SKETCH_CARD``:
+   approx_distinct, approx_percentile, max_by/min_by, arbitrary,
+   bool_or/bool_and and the variance family over store_sales, TPC-DS
+   q17's store/returns relation and, at SF1 only, q39's inventory
+   relation), each held against its exact numpy reference (q98's DOUBLE
+   to relative 1e-12, the sums of ds_q39_inv's million doubles to
+   relative 1e-9, every other DOUBLE exactly), cold and in 3 warm runs;
+   the peak device memory of each scale is printed. A statement whose
+   join exceeds ``query_max_memory_per_node``'s default raises
+   ExceededMemoryLimitError (no spill tier yet) and then runs with the
+   cap at 64GB; the output says which. Each path runs with every
+   kernel's launch count set to 0 just before it: K1-K10 must be
+   launched on the TPC-H path and W1-W4 and A1-A3 on the TPC-DS path;
+   the launches of each query's runs, and the calls of count_true,
+   blocked_sum and _presort_shared on each path, are printed.
 6. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -87,6 +98,7 @@ PART_ROWS = 2_000_000
 #: 2002-12-30) and q51's windowed relation over 180K items
 DS_SALES_ROWS = 28_800_000
 DS_STORES = 120
+DS_ITEMS = 180_000
 DS_DAYS = 1824
 Q51_ROWS = 5_500_000
 Q51_ITEMS = 180_000
@@ -861,18 +873,170 @@ def window_phases(torch, np, K, dev) -> dict:
     return out
 
 
+def a1_phase(torch, K, lane, contrib, group, m, caps, hashed) -> dict:
+    """A1 against its plain version (on the card: at 180K x 512 registers
+    its sort and searches are too large for the host), timed beside
+    ``scatter_reduce_`` amax over (group * m + bucket, rho) once the
+    hashes and rho are built."""
+    got = K.hll_registers(lane, contrib, group, m, caps, hashed)
+    want = K.hll_registers_plain(lane, contrib, group, m, caps, hashed)
+    torch.cuda.synchronize()
+    if not same(torch, got, want):
+        fail(f"hll_registers (m={m}, {caps} groups) differs from the plain version")
+    h = lane if hashed else K.dev_hash64(lane)
+    bucket, rho = K._hll_bucket_rho(h, m)
+    key = bucket if group is None else group * m + bucket
+    key = torch.where(contrib, key, torch.full_like(key, caps * m))
+    rho8 = rho.to(torch.int8)
+
+    def library():
+        out = torch.zeros(caps * m + 1, dtype=torch.int8, device=lane.device)
+        return out.scatter_reduce_(0, key, rho8, reduce="amax")
+
+    if not same(torch, library()[:-1].reshape(caps, m), got):
+        fail("hll_registers: the scatter_reduce_ yardstick computes another function")
+    n = lane.shape[0]
+    del h, bucket, rho
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.hll_registers(lane, contrib, group, m, caps, hashed)),
+        "plain_ms": timed_ms(torch, lambda: K.hll_registers_plain(
+            lane, contrib, group, m, caps, hashed)),
+        "library_ms": timed_ms(torch, library),
+        # the lane (8 B), contrib (1 B) and group id (8 B) read once, the
+        # int8 registers written once
+        "bound_ms": bound_ms(n * (8 + 1 + (0 if group is None else 8)) + caps * m),
+        "rows": n, "groups": caps, "m": m,
+        "max_register": int(got.max()) if got.numel() else 0,
+    }, got
+
+
+def a2_phase(torch, K, reg) -> dict:
+    got = K.hll_estimate(reg)
+    want = K.hll_estimate_plain(reg)
+    torch.cuda.synchronize()
+    if not same(torch, got, want):
+        fail("hll_estimate differs from the plain version")
+    c, m = reg.shape
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.hll_estimate(reg)),
+        "plain_ms": timed_ms(torch, lambda: K.hll_estimate_plain(reg)),
+        "library_ms": None,  # no PyTorch call estimates a cardinality
+        # the registers read once, one int64 estimate written per row
+        "bound_ms": bound_ms(c * m + c * 8),
+        "rows": c, "m": m,
+        "linear_counting_rows": int(((reg == 0).sum(1) > 0).sum()),
+    }
+
+
+def a3_phase(torch, np, K, info, dtype_name: str, tag: int) -> dict:
+    """A3 over ``info``'s groups: int64 keys with ties and the would-be
+    sentinels, or float64 keys holding NaN, -0.0 and ties; ~30% of the
+    rows do not contribute and every seventh group has no contributing
+    row. Held against the plain version for min and max."""
+    rng = np.random.default_rng(SEED + 400 + tag)
+    n = info.perm.shape[0]
+    dev = info.perm.device
+    if dtype_name == "int64":
+        x = rng.integers(0, 100_000, size=n).astype(np.int64)
+        x[rng.random(n) < 1e-4] = np.iinfo(np.int64).max
+        x[rng.random(n) < 1e-4] = np.iinfo(np.int64).min
+    else:
+        x = rng.integers(-50_000, 50_000, size=n) / 100.0
+        x[rng.random(n) < 0.01] = -0.0
+        x[rng.random(n) < 1e-6] = np.nan
+    keys = torch.from_numpy(x).to(dev)
+    contrib = torch.from_numpy(rng.random(n) >= 0.3).to(dev)
+    contrib &= info.group % 7 != 3
+    for is_min in (True, False):
+        got = K.seg_arg_extreme(keys, contrib, info, is_min)
+        want = K.seg_arg_extreme_plain(keys, contrib, info.perm, info.starts,
+                                       info.ends, is_min)
+        torch.cuda.synchronize()
+        if not same(torch, got, want):
+            fail(f"seg_arg_extreme {dtype_name} is_min={is_min} differs from "
+                 "the plain version")
+    cap = info.starts.shape[0]
+    perm, starts, ends = info.perm, info.starts, info.ends
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.seg_arg_extreme(keys, contrib, info, False)),
+        "plain_ms": timed_ms(torch, lambda: K.seg_arg_extreme_plain(
+            keys, contrib, perm, starts, ends, False)),
+        "library_ms": None,  # no PyTorch call takes a segmented argmax
+        # perm, the key (8 B each) and contrib (1 B) read once; starts
+        # and ends read, the rows written once (8 B a slot each)
+        "bound_ms": bound_ms(n * 17 + cap * 24),
+        "rows": n, "capacity": cap, "groups": int(info.num_groups),
+        "dtype": dtype_name,
+    }
+
+
+def agg_phases(torch, np, K, shapes, dev) -> dict:
+    """A1-A3 at the TPC-DS SF10 shapes of the new statements: 28.8M
+    store_sales rows, globally (m = 4096, an int64 value lane that A1
+    hashes, and a lane where every row holds one hot hash) and in 180K
+    items (m = 512); A2 over the 180K x 512 registers; A3 over 28.8M rows
+    in 180K and in 120 groups."""
+    out = {}
+    rng = np.random.default_rng(SEED + 500)
+    n = DS_SALES_ROWS
+    cust = torch.from_numpy(rng.integers(1, 1_000_001, size=n).astype(np.int64)).to(dev)
+    contrib = torch.from_numpy(rng.random(n) >= 0.03).to(dev)
+    out["a1_global"], _ = a1_phase(torch, K, cust, contrib, None, 4096, 1, False)
+    hot = torch.full((n,), 0x1234_5678_9ABC_DEF0, dtype=torch.int64, device=dev)
+    out["a1_hot"], _ = a1_phase(torch, K, hot, contrib, None, 4096, 1, True)
+    del hot
+    item = torch.from_numpy(rng.integers(0, DS_ITEMS, size=n).astype(np.int64)).to(dev)
+    info = K.group_by([(item, None)], contrib, shapes.table_bucket(DS_ITEMS, 0),
+                      widths=(int(DS_ITEMS - 1).bit_length(),))
+    caps = info.starts.shape[0]
+    out["a1_grouped"], reg = a1_phase(torch, K, cust, contrib, info.group, 512, caps,
+                                      False)
+    out["a2"] = a2_phase(torch, K, reg)
+    del reg, cust
+    torch.cuda.empty_cache()
+    out["a3_items_int"] = a3_phase(torch, np, K, info, "int64", 1)
+    out["a3_items_float"] = a3_phase(torch, np, K, info, "float64", 2)
+    del info
+    store = torch.from_numpy(rng.integers(0, DS_STORES, size=n).astype(np.int64)).to(dev)
+    info = K.group_by([(store, None)], contrib, 128, widths=(7,))
+    out["a3_stores_int"] = a3_phase(torch, np, K, info, "int64", 3)
+    out["a3_stores_float"] = a3_phase(torch, np, K, info, "float64", 4)
+    del info, store, item, contrib
+    torch.cuda.empty_cache()
+    return out
+
+
+def count_true_phase(torch, np, K, dev) -> dict:
+    """``kernels.count_true`` (a torch sum; the JAX package's blocked
+    reduce only worked around an XLA bug) over a 60M-row bool mask."""
+    rng = np.random.default_rng(SEED + 600)
+    mask = torch.from_numpy(rng.random(LINEITEM_ROWS) >= 0.4).to(dev)
+    if int(K.count_true(mask)) != int(mask.sum()):
+        fail("count_true miscounts")
+    return {
+        "rows": LINEITEM_ROWS,
+        "ms": timed_ms(torch, lambda: K.count_true(mask)),
+        "blocked_sum_ms": timed_ms(torch, lambda: K.blocked_sum(mask)),
+        # the mask read once (1 B a row), one int64 written
+        "bound_ms": bound_ms(LINEITEM_ROWS + 8),
+    }
+
+
 # ---- main path ---------------------------------------------------------------
 
 
 #: Q11's FRACTION per scale (TPC-H 2.4.11.3: 0.0001 / SF), so that SF10's
 #: answer has rows to compare
-Q11_FRACTION = {"sf10": "0.0000100000"}
-#: the queries that need more than query_max_memory_per_node's 2GB
-#: default: the port has no spill tier yet (ROADMAP Queue 1, step 12),
-#: so a join over the per-node cap cannot be revoked to the host, and
-#: these run with the cap at what the 80 GB card holds (Q9's SF10 join
-#: reserves 7.3 GB); every other query keeps the default
-OVER_DEFAULT_CAP = {("q09", "sf10"): "64GB"}
+Q11_FRACTION = {"sf1": "0.0001000000", "sf10": "0.0000100000"}
+#: the TPC-H queries that also run at SF10: BASELINE.json's main path
+#: (Q1, Q3) and Q18, whose c_name is hash-coded there. The other SF10
+#: runs were cut to keep the script inside its time limit once the
+#: aggregate functions' statements joined the TPC-DS path (most of their
+#: time was cold planner statistics).
+SF10_QUERIES = ("q01", "q03", "q18")
 
 
 def run_query(torch, K, runner, data, name, sql, ref, scale, R) -> dict:
@@ -896,21 +1060,28 @@ def run_query(torch, K, runner, data, name, sql, ref, scale, R) -> dict:
         if again != rows:
             fail(f"{name} at {scale}: a warm run's rows differ")
     per_query = {k: fn.launches - before[k] for k, fn in K.KERNELS.items()}
+    # one more warm run that stops at the result page: what the host's
+    # conversion of the page into Python rows adds to a warm run
+    tp = time.perf_counter()
+    runner.execute_page(sql)
+    torch.cuda.synchronize()
+    page_ms = (time.perf_counter() - tp) * 1e3
     print(f"main path {name} {scale}: {len(rows)} rows equal the numpy "
           f"reference; cold {cold_ms:.1f} ms, warm median "
           f"{statistics.median(warm):.2f} ms (range {min(warm):.2f}-"
-          f"{max(warm):.2f}); launches in 4 runs {per_query}", flush=True)
+          f"{max(warm):.2f}), to the result page {page_ms:.2f} ms; "
+          f"launches in 4 runs {per_query}", flush=True)
     return {
         "rows": len(rows), "cold_ms": cold_ms, "warm_ms": warm,
-        "warm_median_ms": statistics.median(warm), "launches_4_runs": per_query,
+        "warm_median_ms": statistics.median(warm), "page_ms": page_ms,
+        "launches_4_runs": per_query,
     }
 
 
-def main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError) -> dict:
-    """The TPC-H path at SF10 (its SF1 runs were dropped to keep the
-    script inside its time limit once the TPC-DS path joined it)."""
+def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
+    """The TPC-H path: every statement at SF1, SF10_QUERIES at SF10."""
     results = {}
-    for scale in ("sf10",):
+    for scale in ("sf1", "sf10"):
         fraction = Q11_FRACTION[scale]
         queries = [
             ("q01", QUERIES["q01"], R.q01),
@@ -925,6 +1096,8 @@ def main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError) -> di
             if q == "q11" else (q, QUERIES[q], getattr(R, q))
             for q in NEW_QUERIES
         ]
+        if scale == "sf10":
+            queries = [q for q in queries if q[0] in SF10_QUERIES]
         t0 = time.perf_counter()
         runner = QueryRunner.tpch(scale)
         if runner.device.type != "cuda":
@@ -932,25 +1105,13 @@ def main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError) -> di
         data = runner.metadata.connector("tpch").data(scale)
         torch.cuda.reset_peak_memory_stats()
         for name, sql, ref in queries:
-            cap = OVER_DEFAULT_CAP.get((name, scale))
-            if cap is not None:
-                # under the default cap the join must refuse its working
-                # set, until the spill tier is ported
-                try:
-                    runner.execute(sql)
-                except ExceededMemoryLimitError as e:
-                    print(f"main path {name} {scale}: under the default "
-                          f"cap: {str(e)[:160]}", flush=True)
-                else:
-                    fail(f"{name} at {scale} ran under the default "
-                         "query_max_memory_per_node; drop its raised cap")
-                runner.session.properties["query_max_memory_per_node"] = cap
-            res = run_query(torch, K, runner, data, name, sql, ref, scale, R)
-            if cap is not None:
-                runner.session.properties.pop("query_max_memory_per_node")
-            results[f"{name}_{scale}"] = dict(res, cap=cap)
+            results[f"{name}_{scale}"] = run_query(
+                torch, K, runner, data, name, sql, ref, scale, R)
         results[f"{scale}_peak_bytes"] = torch.cuda.max_memory_allocated()
         results[f"{scale}_seconds"] = time.perf_counter() - t0
+        print(f"TPC-H {scale}: peak device memory "
+              f"{results[f'{scale}_peak_bytes'] / 1e9:.2f} GB, "
+              f"{results[f'{scale}_seconds']:.1f} s", flush=True)
         del runner, data
         torch.cuda.empty_cache()
     return results
@@ -967,7 +1128,13 @@ Q51_MONTH = 108
 SPILL_FREE_CAP = "64GB"
 
 
-def tpcds_path(torch, K, QueryRunner, DS_QUERIES, R, ExceededMemoryLimitError) -> dict:
+#: inventory has 2.349B rows at SF10 (four int64 columns: ~75 GB, more
+#: than the card holds), so q39's relation runs at SF1 only
+SKIPPED_AT = {("ds_q39_inv", "sf10")}
+
+
+def tpcds_path(torch, K, QueryRunner, DS_QUERIES, SKETCH_CARD, R,
+               ExceededMemoryLimitError) -> dict:
     """The TPC-DS path at SF1 and SF10: a star join (q3), a window sum
     over aggregates (q98), a FULL join under running sums and running
     maxima over decimal(38,2) (q51 and the totals of its windowed
@@ -983,7 +1150,7 @@ def tpcds_path(torch, K, QueryRunner, DS_QUERIES, R, ExceededMemoryLimitError) -
          lambda d: R.ds_q51_totals(d, Q51_MONTH)),
         ("ds_q86", DS_QUERIES["q86"], R.ds_q86),
         ("ds_range7", R.RANGE7_SQL, R.ds_range7),
-    ]
+    ] + [(name, SKETCH_CARD[name], getattr(R, name)) for name in SKETCH_CARD]
     results = {}
     for scale in ("sf1", "sf10"):
         t0 = time.perf_counter()
@@ -993,6 +1160,8 @@ def tpcds_path(torch, K, QueryRunner, DS_QUERIES, R, ExceededMemoryLimitError) -
         data = runner.metadata.connector("tpcds").data(scale)
         torch.cuda.reset_peak_memory_stats()
         for name, sql, ref in statements:
+            if (name, scale) in SKIPPED_AT:
+                continue
             try:
                 res = run_query(torch, K, runner, data, name, sql, ref, scale, R)
             except ExceededMemoryLimitError as e:
@@ -1022,20 +1191,29 @@ TPCH_KERNELS = (
     "group_ids", "seg_sum", "join_probe", "expand_matches", "range_any",
     "scatter_any", "hash_keys", "pack_words", "seg_minmax", "order_words",
 )
-WINDOW_KERNELS = ("window_peers", "range_sum", "range_minmax", "seg_searchsorted")
+TPCDS_KERNELS = (
+    "window_peers", "range_sum", "range_minmax", "seg_searchsorted",
+    "hll_registers", "hll_estimate", "seg_arg_extreme",
+)
 
 
-def drive(torch, K, label, kernels, fn):
+def drive(torch, K, stage, label, kernels, fn):
     """Run one path with every launch count set to 0 just before it;
-    fail if one of ``kernels`` was never launched in it."""
+    fail if one of ``kernels`` was never launched in it. Also counts the
+    calls of count_true, blocked_sum and stage._presort_shared (torch
+    ops, not kernels)."""
     K.reset_launches()
+    counted = (K.count_true, K.blocked_sum, stage._presort_shared)
+    for f in counted:
+        f.calls = 0
     out = fn()
     launches = {k: f.launches for k, f in K.KERNELS.items()}
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the {label} path: {missing}")
-    print(f"{label} path launches: {launches}", flush=True)
-    return out, launches
+    calls = {f.__name__: f.calls for f in counted}
+    print(f"{label} path launches: {launches}; calls {calls}", flush=True)
+    return out, launches, calls
 
 
 def main() -> int:
@@ -1062,9 +1240,10 @@ def main() -> int:
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
     from trino_tpu_torch.engine import QueryRunner
     from trino_tpu_torch.exec import kernels as K
-    from trino_tpu_torch.exec import native, shapes
+    from trino_tpu_torch.exec import native, shapes, stage
     from trino_tpu_torch.memory import ExceededMemoryLimitError
     from trino_tpu_torch.testing import numpy_reference as R
+    from trino_tpu_torch.testing.statements import SKETCH_CARD
 
     smi = nvidia_line()
     print(smi, flush=True)
@@ -1118,6 +1297,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     wk = window_phases(torch, np, K, dev)
     torch.cuda.empty_cache()
+    ak = agg_phases(torch, np, K, shapes, dev)
+    counting = count_true_phase(torch, np, K, dev)
+    print("count_true " + json.dumps(counting), flush=True)
+    torch.cuda.empty_cache()
     sources = {
         "group_ids": ("trino_tpu_torch/csrc/group_ids.cu",
                       "trino_tpu/exec/kernels.py:166"),
@@ -1147,6 +1330,12 @@ def main() -> int:
                          "trino_tpu/exec/window.py:464"),
         "seg_searchsorted": ("trino_tpu_torch/csrc/seg_searchsorted.cu",
                              "trino_tpu/exec/window.py:412"),
+        "hll_registers": ("trino_tpu_torch/csrc/hll.cu",
+                          "trino_tpu/exec/aggregates.py:460"),
+        "hll_estimate": ("trino_tpu_torch/csrc/hll.cu",
+                         "trino_tpu/exec/aggregates.py:489"),
+        "seg_arg_extreme": ("trino_tpu_torch/csrc/seg_arg_extreme.cu",
+                            "trino_tpu/exec/kernels.py:414"),
     }
     rows = f"{LINEITEM_ROWS / 1e6:g}M rows"
     join = f"{ORDERS_ROWS / 1e6:g}M build, {LINEITEM_ROWS / 1e6:g}M probe"
@@ -1210,6 +1399,26 @@ def main() -> int:
     entries["seg_searchsorted"] = dict(
         wk["w4_left"], case=f"{sales}, left search of key - 6 (ds_range7)",
         cases=[dict(wk["w4_right"], case=f"{sales}, right search of key")])
+    ss = f"{DS_SALES_ROWS / 1e6:g}M store_sales rows"
+    items = f"{DS_ITEMS // 1000}K items"
+    entries["hll_registers"] = dict(
+        ak["a1_grouped"], case=f"{ss} in {items} x 512 registers, int64 values "
+                               "hashed in the kernel (ds_sketch_item)",
+        cases=[dict(ak["a1_global"], case=f"{ss}, one group x 4096 registers "
+                    "(ds_sketch_global)"),
+               dict(ak["a1_hot"], case=f"{ss}, 4096 registers, every row one "
+                    "hot hash")])
+    entries["hll_estimate"] = dict(
+        ak["a2"], case=f"{items} x 512 registers (ds_sketch_item)")
+    entries["seg_arg_extreme"] = dict(
+        ak["a3_items_int"], case=f"{ss} in {items}, int64 keys with ties "
+                                 "and sentinel values, max_by",
+        cases=[dict(ak["a3_items_float"], case=f"{ss} in {items}, float64 "
+                    "keys with NaN and -0.0"),
+               dict(ak["a3_stores_int"], case=f"{ss} in {DS_STORES} groups, "
+                    "int64 keys"),
+               dict(ak["a3_stores_float"], case=f"{ss} in {DS_STORES} groups, "
+                    "float64 keys")])
     for name, e in entries.items():
         print(f"kernel {name} [{e['case']}]: {e['ms']:.3f} ms, plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']} ms, bound "
@@ -1221,16 +1430,18 @@ def main() -> int:
                   f"{c['max_abs_err']}", flush=True)
 
     # ---- main path: TPC-H, then TPC-DS, each with the counts set to 0
-    path, tpch_launches = drive(
-        torch, K, "TPC-H", TPCH_KERNELS,
-        lambda: main_path(torch, K, QueryRunner, QUERIES, R, ExceededMemoryLimitError))
+    path, tpch_launches, tpch_calls = drive(
+        torch, K, stage, "TPC-H", TPCH_KERNELS,
+        lambda: main_path(torch, K, QueryRunner, QUERIES, R))
     print("main_path " + json.dumps(path, sort_keys=True), flush=True)
-    ds_path, ds_launches = drive(
-        torch, K, "TPC-DS", WINDOW_KERNELS,
-        lambda: tpcds_path(torch, K, QueryRunner, DS_QUERIES, R,
+    ds_path, ds_launches, ds_calls = drive(
+        torch, K, stage, "TPC-DS", TPCDS_KERNELS,
+        lambda: tpcds_path(torch, K, QueryRunner, DS_QUERIES, SKETCH_CARD, R,
                            ExceededMemoryLimitError))
     print("tpcds_path " + json.dumps(ds_path, sort_keys=True), flush=True)
     launches = {k: tpch_launches[k] + ds_launches[k] for k in K.KERNELS}
+    print("calls on the paths " + json.dumps(
+        {k: tpch_calls[k] + ds_calls[k] for k in tpch_calls}), flush=True)
     print(f"total seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
     kernels = []

@@ -610,3 +610,152 @@ def test_tiny_hash_varchar_on_card(cuda):
         r.session.properties["varchar_hash_ndv"] = 1000
     for sql in statements:
         assert gpu.execute(sql).rows == cpu.execute(sql).rows, sql
+
+
+def _hll_inputs(n, n_groups, kind, seed):
+    """(lane, hashed, contrib, group | None): int64 or float64 values to
+    hash (NaN, -0.0), precomputed hash lanes with zero low bits, or one
+    hot value in every row."""
+    rng = np.random.default_rng(seed)
+    contrib = rng.random(n) >= 0.2
+    hashed = kind in ("hash", "hot")
+    if kind == "float64":
+        lane = rng.normal(size=n).round(2)
+        lane[::97] = np.nan
+        lane[1::89] = -0.0
+    elif kind == "int64":
+        lane = rng.integers(0, max(n // 3, 1), size=n).astype(np.int64)
+    elif kind == "hot":
+        lane = np.full(n, 0x1234_5678_9ABC_DEF0, dtype=np.int64)
+    else:
+        lane = rng.integers(-(1 << 63), (1 << 63) - 1, size=n, dtype=np.int64)
+        lane[:8] = (np.arange(8, dtype=np.int64) << 55)[:n]  # h << b == 0
+    group = None
+    if n_groups > 1:
+        group = rng.integers(0, n_groups, size=n).astype(np.int64)
+    elif n_groups == 0:  # the grouped form with one group holding every row
+        group = np.zeros(n, dtype=np.int64)
+    return (torch.from_numpy(lane), hashed, torch.from_numpy(contrib),
+            None if group is None else torch.from_numpy(group))
+
+
+@pytest.mark.parametrize("n,n_groups,m,kind", [
+    (0, 1, 4096, "hash"),
+    (1, 1, 4096, "int64"),
+    (300_000, 1, 4096, "int64"),
+    (300_000, 1, 4096, "float64"),
+    (300_000, 1, 4096, "hot"),
+    (300_000, 1, 4096, "hash"),
+    (300_000, 0, 512, "hash"),         # one group holding every row
+    (300_000, 5000, 512, "hash"),
+    (300_000, 5000, 512, "hot"),
+    (300_000, 5000, 512, "float64"),
+    (8_000_000, 2_000_000, 512, "int64"),  # 2M groups of four rows
+])
+def test_hll_kernels(cuda, n, n_groups, m, kind):
+    lane, hashed, contrib, group = _hll_inputs(n, n_groups, kind, seed=n + m)
+    caps = max(n_groups, 1)
+    # the plain version runs on the card too (its sort and searches are
+    # too large for the host at 2M groups x 512 registers)
+    dev = cuda if n > 1_000_000 else torch.device("cpu")
+    want = K.hll_registers_plain(
+        lane.to(dev), contrib.to(dev), None if group is None else group.to(dev),
+        m, caps, hashed,
+    )
+    K.hll_registers.launches = K.hll_estimate.launches = 0
+    got = K.hll_registers(
+        lane.to(cuda), contrib.to(cuda), None if group is None else group.to(cuda),
+        m, caps, hashed,
+    )
+    est = K.hll_estimate(got)
+    torch.cuda.synchronize()
+    assert K.hll_registers.launches == 1 and K.hll_estimate.launches == 1
+    assert got.dtype == torch.int8 and got.shape == (caps, m)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert torch.equal(est.cpu(), K.hll_estimate_plain(want).cpu())
+
+
+def _arg_inputs(n, n_keys, dtype, seed):
+    rng = np.random.default_rng(seed)
+    gkey = rng.integers(0, max(n_keys, 1), size=n).astype(np.int64)
+    live = rng.random(n) >= 0.1
+    contrib = (rng.random(n) >= 0.3) & (gkey % 7 != 3)  # some groups: none
+    if dtype == "float64":
+        keys = rng.integers(-5, 5, size=n).astype(np.float64)  # ties
+        keys[::31] = np.nan
+        keys[1::17] = -0.0
+        keys[2::23] = np.inf
+    elif dtype == "float32":
+        keys = rng.normal(size=n).round(1).astype(np.float32)
+        keys[::29] = np.nan
+        keys[1::13] = -0.0
+    elif dtype == "bool":
+        keys = rng.random(n) < 0.5
+    elif dtype == "int32":
+        keys = rng.integers(-9, 9, size=n).astype(np.int32)
+    else:
+        keys = rng.integers(-3, 3, size=n).astype(np.int64)
+        keys[::11] = np.iinfo(np.int64).max  # the would-be sentinels
+        keys[1::11] = np.iinfo(np.int64).min
+    return gkey, live, contrib, keys
+
+
+@pytest.mark.parametrize("n,n_keys,dtype", [
+    (0, 1, "int64"),
+    (7, 3, "float64"),
+    (300_000, 1, "int64"),            # one group holding every row
+    (300_000, 120, "int64"),
+    (300_000, 120, "float64"),
+    (300_000, 50_000, "float64"),
+    (300_000, 5000, "int32"),
+    (300_000, 5000, "bool"),
+    (300_000, 5000, "float32"),
+    (8_000_000, 2_000_000, "int64"),  # 2M groups of four rows
+])
+def test_seg_arg_extreme_kernel(cuda, n, n_keys, dtype):
+    gkey, live, contrib, keys = _arg_inputs(n, n_keys, dtype, seed=n + n_keys)
+    cap = 1 << max(int(n_keys).bit_length(), 3)
+    dev = cuda if n > 1_000_000 else torch.device("cpu")
+    info = K.group_by(
+        [(torch.from_numpy(gkey).to(dev), None)], torch.from_numpy(live).to(dev),
+        cap, widths=(64,),
+    )
+    k, c = torch.from_numpy(keys), torch.from_numpy(contrib)
+    info_c = K.GroupInfo(*(None if t is None else t.to(cuda) for t in info))
+    for is_min in (True, False):
+        want = K.seg_arg_extreme_plain(
+            k.to(dev), c.to(dev), info.perm, info.starts, info.ends, is_min,
+        )
+        K.seg_arg_extreme.launches = 0
+        got = K.seg_arg_extreme(k.to(cuda), c.to(cuda), info_c, is_min)
+        torch.cuda.synchronize()
+        assert K.seg_arg_extreme.launches == 1
+        assert torch.equal(got.cpu(), want.cpu()), (is_min, dtype)
+
+
+def test_tiny_aggregate_statements_on_card(cuda):
+    """The aggregate functions' statements (TPC-H and VALUES) and their
+    TPC-DS card statements give the same rows on cuda as on cpu (DOUBLEs
+    of double and decimal arguments to relative 1e-9: their sums add in
+    another order on the card)."""
+    from trino_tpu_torch.engine import QueryRunner
+    from trino_tpu_torch.testing.statements import AGGREGATE_STATEMENTS, SKETCH_CARD
+
+    runs = [
+        (QueryRunner.tpch("tiny"), QueryRunner.tpch("tiny", device="cpu"),
+         AGGREGATE_STATEMENTS),
+        (QueryRunner.tpcds("tiny"), QueryRunner.tpcds("tiny", device="cpu"),
+         SKETCH_CARD),
+    ]
+    approx = {"variance_double", "variance_decimal", "ds_q39_inv"}
+    for gpu, cpu, statements in runs:
+        assert gpu.device.type == "cuda"
+        for name, sql in statements.items():
+            got, want = gpu.execute(sql).rows, cpu.execute(sql).rows
+            assert len(got) == len(want), name
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
+                    if isinstance(b, float) and name in approx:
+                        assert abs(a - b) <= 1e-9 * abs(b), (name, g, w)
+                    else:
+                        assert type(a) is type(b) and a == b, (name, g, w)

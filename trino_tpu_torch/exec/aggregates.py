@@ -1,6 +1,8 @@
 """Aggregate function evaluation as sorted segment reductions — the port
-of ``trino_tpu/exec/aggregates.py`` for count, sum, avg, min and max
-(decimal included, with exact two-limb sums).
+of ``trino_tpu/exec/aggregates.py``: count, count_if, sum, avg, min and
+max (decimal included, with exact two-limb sums), approx_distinct (HLL),
+approx_percentile (the exact sorted-rank form), max_by and min_by,
+any_value and arbitrary, bool_and and bool_or, and the variance family.
 
 ``kernels.group_by`` leaves each group as one contiguous run of the
 sorted row order, so every sum is a gather into sorted order plus a
@@ -11,11 +13,15 @@ Work shared between the aggregates of one GROUP BY (the gather of a
 column into group order, per-group counts, contribution masks) is
 deduplicated through a per-step ``share`` cache keyed by object
 identity. Global (ungrouped) aggregates are dense masked reductions.
-Sketches and variance are not ported yet and raise.
+The PARTIAL/FINAL split of the sketches (``approx_distinct_partial``,
+``approx_percentile_partial`` and their finals) belongs to the
+distributed and chunked tiers, which the port does not have yet: those
+names raise.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from trino_tpu_torch import types as T
@@ -23,9 +29,19 @@ from trino_tpu_torch.exec import kernels as K
 from trino_tpu_torch.expr.compiler import _div_round_half_up
 from trino_tpu_torch.page import torch_dtype
 
-__all__ = ["compute_aggregate"]
+__all__ = ["compute_aggregate", "VARIANCE_FNS"]
 
 I64 = torch.int64
+
+VARIANCE_FNS = {
+    "stddev", "stddev_samp", "stddev_pop", "variance", "var_samp", "var_pop",
+}
+
+#: HLL register counts (relative standard error 1.04/sqrt(m)): a global
+#: approx_distinct gets 4096 registers (~1.6%), a grouped one 512 (~4.6%)
+#: to bound the per-group state at 512 bytes
+HLL_GLOBAL_BUCKETS = 4096
+HLL_GROUPED_BUCKETS = 512
 
 
 def _zero(like: torch.Tensor) -> torch.Tensor:
@@ -131,6 +147,17 @@ class _Reducer:
             masked, self.info.starts, self.info.ends, fill, is_min,
         )
 
+    def first_value(self, data):
+        """Value of the first contributing row per group (in scan order:
+        the grouping sort is stable)."""
+        n = data.shape[0]
+        if self.info is None:
+            idx = torch.arange(n, dtype=I64, device=data.device)
+            first = torch.where(self.contrib, idx, torch.full_like(idx, n))
+            return data[first.amin().clamp(0, max(n - 1, 0))[None]]
+        rows, _ = K.seg_first_index(self.contrib_s, self.info)
+        return data[rows.clamp(0, max(n - 1, 0))]
+
 
 def compute_aggregate(
     name: str,
@@ -158,7 +185,26 @@ def compute_aggregate(
             eff = eff & valid
         return _Reducer(info, capacity, eff, share).count(), None
 
-    if name not in ("count", "sum", "avg", "min", "max"):
+    if name == "approx_distinct":
+        # HLL over prepared 64-bit hash lanes (exec.stage builds them:
+        # content hashes for varchar, values for numerics, which A1
+        # hashes with dev_hash64)
+        (data, hashed), valid = arg
+        eff = contrib if valid is None else (contrib & valid)
+        m = HLL_GLOBAL_BUCKETS if info is None else HLL_GROUPED_BUCKETS
+        reg = K.hll_registers(
+            data, eff, None if info is None else info.group, m,
+            1 if info is None else capacity, hashed,
+        )
+        return K.hll_estimate(reg), None
+
+    if name == "approx_percentile":
+        return _percentile(arg, info, capacity, contrib, share)
+
+    if name in ("max_by", "min_by"):
+        return _arg_extreme(name == "min_by", arg, info, capacity, contrib, share)
+
+    if name not in _PLAIN_AGGREGATES:
         raise NotImplementedError(f"compute_aggregate: {name}")
 
     data, valid = arg
@@ -194,6 +240,17 @@ def compute_aggregate(
         s = red.sum(data, dtype=torch.float64)
         return s / torch.clamp(cnt, min=1), nonempty
 
+    if name in ("any_value", "arbitrary"):
+        return red.first_value(data), nonempty
+
+    if name in ("bool_and", "bool_or"):
+        is_min = name == "bool_and"
+        out = red.minmax(data.to(torch.int8), 1 if is_min else 0, is_min)
+        return out.to(torch.bool), nonempty
+
+    if name in VARIANCE_FNS:
+        return _variance(name, data, red, cnt)
+
     is_min = name == "min"
     if data.dim() == 2:
         # two-limb decimal: extreme of hi, then extreme of lo among rows
@@ -217,6 +274,108 @@ def compute_aggregate(
         iinfo = torch.iinfo(data.dtype)
         fill = iinfo.max if is_min else iinfo.min
     return red.minmax(data, fill, is_min), nonempty
+
+
+_PLAIN_AGGREGATES = {
+    "count", "sum", "avg", "min", "max", "any_value", "arbitrary",
+    "bool_and", "bool_or", *VARIANCE_FNS,
+}
+
+
+def _variance(name, data, red: _Reducer, cnt):
+    """The variance family as the JAX package computes it: float64 sums
+    ``s1`` and ``s2`` (K2 per group), ``m2 = s2 - s1^2 / n`` clamped at
+    0, divided by n or n - 1; NULL below 1 or 2 rows. The squares are
+    taken after the shared gather into group order."""
+    if red.info is None:
+        x = torch.where(red.contrib, data.to(torch.float64), 0.0)
+        s1 = x.sum()[None]
+        s2 = (x * x).sum()[None]
+    else:
+        xs = red._sorted(data).to(torch.float64)
+        xs = torch.where(red.contrib_s, xs, _zero(xs))
+        s1 = K.seg_sum_ranges(xs, red.info)
+        s2 = K.seg_sum_ranges(xs * xs, red.info)
+    n = cnt.to(torch.float64)
+    m2 = (s2 - (s1 * s1) / n.clamp(min=1.0)).clamp(min=0.0)
+    pop = name.endswith("_pop")
+    denom = n if pop else n - 1.0
+    var = m2 / denom.clamp(min=1.0)
+    if name.startswith("stddev"):
+        var = _sqrt(var)
+    return var, cnt >= (1 if pop else 2)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root, as the JAX package's. torch's
+    CPU kernel can be an ulp off (sqrt(2.0) gives 1.414213562373095);
+    numpy's and CUDA's are IEEE square roots."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def _stable_argsort(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bool:
+        x = x.to(torch.int8)
+    return torch.sort(x, stable=True).indices
+
+
+def _percentile(arg, info, capacity, contrib, share):
+    """approx_percentile, exactly: rows re-sort (group, contributing
+    first, value) with stable sorts and each group reads index
+    ``round(q * (cnt - 1))`` (half to even) of its run, which occupies
+    ``info``'s range of the group (the same rows, dead rows last)."""
+    (vd, vv), (qd, _qv) = arg
+    eff = contrib if vv is None else (contrib & vv)
+    q = qd.reshape(-1)[0].to(torch.float64)
+    n = vd.shape[0]
+    if vd.dim() == 2:
+        # two-limb decimal: order is (hi signed, lo canonical), so sort
+        # by lo, then stably by hi
+        p = _stable_argsort(K.order_bits(vd[:, 1]))
+        p = p[_stable_argsort(K.order_bits(vd[p, 0]))]
+    else:
+        p = _stable_argsort(K.order_bits(vd))
+    p = p[_stable_argsort((~eff)[p])]
+    cnt = _Reducer(info, capacity, eff, share).count()
+    if info is None:
+        starts = torch.zeros(1, dtype=I64, device=vd.device)
+    else:
+        p = p[_stable_argsort(info.group[p])]
+        starts = info.starts
+    offs = torch.round(q * (cnt.to(torch.float64) - 1.0)).to(I64)
+    offs = torch.minimum(offs.clamp(min=0), (cnt - 1).clamp(min=0))
+    at = (starts + offs).clamp(0, max(n - 1, 0))
+    return vd[p[at]], cnt > 0
+
+
+def _arg_extreme(is_min, arg, info, capacity, contrib, share):
+    """max_by / min_by: the value at the first contributing row whose key
+    is greatest (least); a contributing row with a NULL key does not
+    count. Global: a masked reduction over ``order_bits``; grouped:
+    ``seg_arg_extreme`` (A3 on the card)."""
+    (vd, vv), (kd, kv) = arg
+    if kd.dim() == 2:
+        raise NotImplementedError("max_by/min_by over a decimal(38) key")
+    eff = contrib if kv is None else (contrib & kv)
+    n = kd.shape[0]
+    if info is None:
+        kbits = K.order_bits(kd)
+        worst = (1 << 63) - 1 if is_min else -(1 << 63)
+        masked = torch.where(eff, kbits, torch.full_like(kbits, worst))
+        m = masked.amin() if is_min else masked.amax()
+        # the first contributing row at the extreme: a real key equal to
+        # the sentinel must not lose to an excluded row
+        idx = torch.argmax((eff & (masked == m)).to(torch.int8))[None]
+        has = eff.any()[None]
+    else:
+        er = _Reducer(info, capacity, eff, share)
+        idx = K.seg_arg_extreme(kd.contiguous(), eff, info, is_min)
+        has = er.count() > 0
+    at = idx.clamp(0, max(n - 1, 0))
+    out = vd[at]
+    return out, (has if vv is None else (has & vv[at]))
 
 
 # ---- exact two-limb decimal helpers ----------------------------------------

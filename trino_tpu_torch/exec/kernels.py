@@ -2,8 +2,8 @@
 ``trino_tpu/exec/kernels.py``.
 
 Everything is a whole-column computation on tensors of the executor's
-device. Fourteen functions have hand-written CUDA kernels (``csrc/``), each
-beside its plain torch version:
+device. Seventeen functions have hand-written CUDA kernels (``csrc/``),
+each beside its plain torch version:
 
 - ``group_ids`` (K1): dense group ids, the inverse permutation and the
   group ranges after the key sort of ``group_by`` (and, for a
@@ -31,7 +31,14 @@ beside its plain torch version:
 - ``range_minmax`` (W3): running min/max over prefix window frames
   (``_range_minmax``, ``_range_minmax_limbs``);
 - ``seg_searchsorted`` (W4): the bisection that turns RANGE offset
-  frames into positions (``_seg_searchsorted``).
+  frames into positions (``_seg_searchsorted``);
+- ``hll_registers`` (A1, ``csrc/hll.cu``): approx_distinct's HLL
+  registers, max rho per (group, bucket) (``aggregates.py:_hll_registers``
+  with ``dev_hash64`` and ``_clz64`` fused);
+- ``hll_estimate`` (A2, ``csrc/hll.cu``): registers to estimates
+  (``aggregates.py:_hll_estimate``);
+- ``seg_arg_extreme`` (A3): max_by/min_by's segmented arg-extreme
+  (``seg_arg_extreme`` with ``order_bits`` fused).
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (and adds one to its ``launches`` count)
@@ -100,6 +107,16 @@ __all__ = [
     "range_minmax_plain",
     "seg_searchsorted",
     "seg_searchsorted_plain",
+    "order_bits",
+    "seg_arg_extreme",
+    "seg_arg_extreme_plain",
+    "seg_first_index",
+    "dev_hash64",
+    "clz64",
+    "hll_registers",
+    "hll_registers_plain",
+    "hll_estimate",
+    "hll_estimate_plain",
 ]
 
 I64 = torch.int64
@@ -705,13 +722,21 @@ seg_minmax.launches = 0
 
 def blocked_sum(x: torch.Tensor) -> torch.Tensor:
     """Scalar int64 sum (the JAX blocked form only works around an XLA
-    compiler bug)."""
+    compiler bug); ``calls`` counts its uses."""
+    blocked_sum.calls += 1
     return x.to(I64).sum()
 
 
+blocked_sum.calls = 0
+
+
 def count_true(mask: torch.Tensor) -> torch.Tensor:
-    """Scalar count of True values."""
+    """Scalar count of True values; ``calls`` counts its uses."""
+    count_true.calls += 1
     return mask.to(I64).sum()
+
+
+count_true.calls = 0
 
 
 # ---- sorting ---------------------------------------------------------------
@@ -1351,6 +1376,255 @@ def seg_searchsorted(w, target, lo0, hi0, left: bool):
 
 seg_searchsorted.launches = 0
 
+
+# ---- order bits, arg-extreme and first index --------------------------------
+
+
+def order_bits(data: torch.Tensor) -> torch.Tensor:
+    """Monotone order bits (port of ``kernels.py:order_bits``) in the
+    port's signed form: the JAX package's u64 bits with bit 63 flipped
+    (``^ _SIGN``), so that signed int64 order is value order. Integers
+    are their own int64 value, bools 0/1 flipped, floats
+    ``_float_sort_bits`` flipped (NaN largest, -0.0 equal to 0.0)."""
+    if data.dtype.is_floating_point:
+        return _float_sort_bits(data) ^ _SIGN
+    if data.dtype == torch.bool:
+        return data.to(I64) ^ _SIGN
+    return data.to(I64)
+
+
+def seg_arg_extreme_plain(keys: torch.Tensor, contrib: torch.Tensor,
+                          perm: torch.Tensor, starts: torch.Tensor,
+                          ends: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """Plain torch version of A3 (port of ``kernels.py:seg_arg_extreme``):
+    for each group (sorted positions ``[starts[g], ends[g])`` of
+    ``perm``), the original row of its best contributing row: the least
+    (``is_min``) or greatest ``order_bits`` key, ties to the first
+    sorted position. ``keys`` and ``contrib`` are in original row order.
+    A group without a contributing row gives the row at its first
+    position (the JAX package gives another row there: callers mask such
+    groups with count > 0)."""
+    cap = starts.shape[0]
+    n = perm.shape[0]
+    if cap == 0 or n == 0:
+        return torch.zeros(cap, dtype=I64, device=perm.device)
+    n_end = int(ends[-1])
+    kb = order_bits(keys)[perm[:n_end]]
+    cs = contrib[perm[:n_end]]
+    worst = (1 << 63) - 1 if is_min else -(1 << 63)
+    best = seg_minmax_plain(
+        torch.where(cs, kb, torch.full_like(kb, worst)), starts, ends, worst,
+        is_min,
+    )
+    # group of each sorted position (dense contiguous ranges)
+    marks = torch.zeros(n_end + 1, dtype=I64, device=perm.device)
+    marks.index_add_(0, ends.clamp(max=n_end), torch.ones_like(ends))
+    seg = torch.cumsum(marks[:n_end], 0)
+    pos = torch.arange(n_end, dtype=I64, device=perm.device)
+    hit = cs & (kb == best[seg.clamp(max=cap - 1)])
+    first = seg_minmax_plain(
+        torch.where(hit, pos, torch.full_like(pos, n)), starts, ends, n, True,
+    )
+    at = torch.where(first < n, first, starts)
+    return perm[at.clamp(0, max(n - 1, 0))]
+
+
+def seg_arg_extreme(keys: torch.Tensor, contrib: torch.Tensor, info: GroupInfo,
+                    is_min: bool) -> torch.Tensor:
+    """A3 wrapper: the original row of each group's key-extremal
+    contributing row (see ``seg_arg_extreme_plain``); keys of any
+    integer, bool or float dtype, read through ``info.perm`` and encoded
+    as ``order_bits`` inside the kernel. Plain version on the CPU, CUDA
+    kernel (``csrc/seg_arg_extreme.cu``) on the card."""
+    perm, starts, ends = info.perm, info.starts, info.ends
+    if _on_cpu(keys, contrib, perm, starts, ends):
+        return seg_arg_extreme_plain(keys, contrib, perm, starts, ends, is_min)
+    n = perm.shape[0]
+    code = _TYPE_CODES.get(keys.dtype)
+    if code is None:
+        raise TypeError(f"seg_arg_extreme: unsupported keys {keys.dtype}")
+    _check("seg_arg_extreme.keys", keys, keys.dtype, n)
+    contrib = contrib.contiguous()
+    _check("seg_arg_extreme.contrib", contrib, torch.bool, n)
+    _check("seg_arg_extreme.perm", perm, I64, n)
+    cap = starts.shape[0]
+    _check("seg_arg_extreme.starts", starts, I64, cap)
+    _check("seg_arg_extreme.ends", ends, I64, cap)
+    best = torch.empty(cap, dtype=I64, device=perm.device)
+    out = torch.empty(cap, dtype=I64, device=perm.device)
+    native.call(
+        "seg_arg_extreme", "seg_arg_extreme_launch", keys, code, contrib,
+        perm, starts, ends, n, cap, int(bool(is_min)), best, out,
+    )
+    seg_arg_extreme.launches += 1
+    return out
+
+
+seg_arg_extreme.launches = 0
+
+
+def seg_first_index(contrib_sorted: torch.Tensor, info: GroupInfo):
+    """Original row of the first contributing row per group (port of
+    ``kernels.py:seg_first_index``; ``n`` when the group has none), and
+    whether it has one: ``seg_minmax`` (K9 on the card) over the masked
+    sorted positions, then a gather of ``info.perm``."""
+    n = contrib_sorted.shape[0]
+    pos = torch.arange(n, dtype=I64, device=contrib_sorted.device)
+    masked = torch.where(contrib_sorted, pos, torch.full_like(pos, n))
+    first_pos = seg_minmax(masked, info.starts, info.ends, n, True)
+    has = first_pos < n
+    rows = info.perm[first_pos.clamp(0, max(n - 1, 0))]
+    return torch.where(has, rows, torch.full_like(rows, n)), has
+
+
+# ---- HyperLogLog ------------------------------------------------------------
+
+_HASH_1 = _u64(0xBF58476D1CE4E5B9)
+_HASH_2 = _u64(0x94D049BB133111EB)
+
+
+def dev_hash64(data: torch.Tensor) -> torch.Tensor:
+    """Device-side 64-bit value hash of an HLL lane (port of
+    ``aggregates.py:dev_hash64``, u64 bits in int64): the splitmix64
+    finalizer over the value's bits. A two-limb decimal is ``(hi << 32)
+    + lo`` (wrapping); floats canonicalize only -0.0 (NaN payloads hash
+    as they are) and widen to float64; integers widen to int64."""
+    if data.dim() == 2:
+        v = (data[:, 0].to(I64) << 32) + data[:, 1].to(I64)
+    elif data.dtype.is_floating_point:
+        f = torch.where(data == 0.0, torch.zeros_like(data), data)
+        v = f.to(torch.float64).contiguous().view(I64)
+    else:
+        v = data.to(I64)
+    v = v ^ _shr(v, 30)
+    v = v * _HASH_1
+    v = v ^ _shr(v, 27)
+    v = v * _HASH_2
+    return v ^ _shr(v, 31)
+
+
+def clz64(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of the u64 bits carried in int64 (port of
+    ``aggregates.py:_clz64``, a binary descent; 64 for 0)."""
+    zero = x == 0
+    n = torch.zeros(x.shape, dtype=I64, device=x.device)
+    for s in (32, 16, 8, 4, 2, 1):
+        no_high = _shr(x, 64 - s) == 0
+        n = n + no_high.to(I64) * s
+        x = torch.where(no_high, x << s, x)
+    return torch.where(zero, torch.full_like(n, 64), n)
+
+
+def _hll_bucket_rho(h: torch.Tensor, m: int):
+    b = int(m).bit_length() - 1
+    bucket = _shr(h, 64 - b)
+    rho = (clz64(h << b) + 1).clamp(1, 64 - b + 1)
+    return bucket, rho
+
+
+def hll_registers_plain(lane: torch.Tensor, contrib: torch.Tensor,
+                        group: torch.Tensor | None, m: int, caps: int,
+                        hashed: bool) -> torch.Tensor:
+    """Plain torch version of A1 (port of ``aggregates.py:_hll_registers``):
+    int8[caps, m] registers, each the largest ``rho`` of the contributing
+    rows whose (group, bucket) it is. ``lane`` holds u64 hash bits, or
+    values to hash with ``dev_hash64`` when ``hashed`` is False; rows of
+    a group outside [0, caps) are dropped (``group`` None: all rows in
+    group 0). As the JAX package, scatter-free: one sort of
+    ``key * 64 + 63 - rho`` and a search for each register's run."""
+    h = lane if hashed else dev_hash64(lane)
+    bucket, rho = _hll_bucket_rho(h, m)
+    key = bucket if group is None else group.to(I64) * m + bucket
+    dead = caps * m
+    key = torch.where(contrib, key, torch.full_like(key, dead))
+    if group is not None:
+        key = torch.where((group < 0) | (group >= caps),
+                          torch.full_like(key, dead), key)
+    combined = key * 64 + (63 - rho)
+    sc = torch.sort(combined).values
+    targets = torch.arange(caps * m, dtype=I64, device=h.device) * 64
+    pos = torch.searchsorted(sc, targets)
+    n = sc.shape[0]
+    if n == 0:
+        return torch.zeros((caps, m), dtype=torch.int8, device=h.device)
+    found = sc[pos.clamp(0, n - 1)]
+    hit = (pos < n) & ((found >> 6) == (targets >> 6))
+    reg = torch.where(hit, 63 - (found & 63), torch.zeros_like(found))
+    return reg.to(torch.int8).reshape(caps, m)
+
+
+def hll_registers(lane: torch.Tensor, contrib: torch.Tensor,
+                  group: torch.Tensor | None, m: int, caps: int,
+                  hashed: bool) -> torch.Tensor:
+    """A1 wrapper: HLL registers (see ``hll_registers_plain``) in
+    original row order, no sort; the kernel applies ``dev_hash64`` to an
+    int64 or float64 value lane itself. Plain version on the CPU, CUDA
+    kernel (``csrc/hll.cu``) on the card."""
+    if _on_cpu(lane, contrib, group):
+        return hll_registers_plain(lane, contrib, group, m, caps, hashed)
+    if m & (m - 1) or not 16 <= m <= 65536:
+        raise ValueError(f"hll_registers: m must be a power of two, got {m}")
+    if lane.dim() == 2:
+        lane = (lane[:, 0].to(I64) << 32) + lane[:, 1].to(I64)
+    elif not hashed and lane.dtype != torch.float64:
+        lane = lane.to(torch.float64 if lane.dtype.is_floating_point else I64)
+    n = lane.shape[0]
+    lane = lane.contiguous()
+    if hashed and lane.dtype != I64:
+        raise TypeError(f"hll_registers: hash lane must be int64, got {lane.dtype}")
+    contrib = contrib.contiguous()
+    _check("hll_registers.contrib", contrib, torch.bool, n)
+    if group is not None:
+        _check("hll_registers.group", group, I64, n)
+    reg = torch.zeros((caps, m), dtype=torch.int8, device=lane.device)
+    mode = 0 if hashed else (2 if lane.dtype == torch.float64 else 1)
+    native.call(
+        "hll", "hll_registers_launch", lane, mode, contrib, group, n, m,
+        caps, reg,
+    )
+    hll_registers.launches += 1
+    return reg
+
+
+hll_registers.launches = 0
+
+
+def hll_estimate_plain(reg: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of A2 (port of ``aggregates.py:_hll_estimate``):
+    registers int8[c, m] -> int64[c] estimates, with the small-range
+    linear-counting correction, rounded half to even."""
+    m = reg.shape[-1]
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    inv = torch.pow(2.0, -reg.to(torch.float64)).sum(-1)
+    # tensor divisions (a Python number over a tensor multiplies by the
+    # reciprocal, which rounds differently)
+    raw = torch.full_like(inv, alpha * m * m) / inv
+    v = (reg == 0).sum(-1).to(torch.float64)
+    ratio = torch.where(
+        v > 0, torch.full_like(v, float(m)) / v.clamp(min=1.0), torch.ones_like(v),
+    )
+    lin = m * torch.log(ratio)
+    est = torch.where((raw <= 2.5 * m) & (v > 0), lin, raw)
+    return torch.round(est).to(I64)
+
+
+def hll_estimate(reg: torch.Tensor) -> torch.Tensor:
+    """A2 wrapper: one estimate per register row (see
+    ``hll_estimate_plain``); plain version on the CPU, CUDA kernel
+    (``csrc/hll.cu``, one warp per row) on the card."""
+    if _on_cpu(reg):
+        return hll_estimate_plain(reg)
+    if reg.dtype != torch.int8 or reg.dim() != 2 or not reg.is_contiguous():
+        raise TypeError("hll_estimate: contiguous int8[c, m] registers")
+    c, m = reg.shape
+    out = torch.empty(c, dtype=I64, device=reg.device)
+    native.call("hll", "hll_estimate_launch", reg, c, m, out)
+    hll_estimate.launches += 1
+    return out
+
+
+hll_estimate.launches = 0
+
 #: the wrappers whose kernels the main path must launch
 KERNELS = {
     "group_ids": group_ids,
@@ -1367,6 +1641,9 @@ KERNELS = {
     "range_sum": range_sum,
     "range_minmax": range_minmax,
     "seg_searchsorted": seg_searchsorted,
+    "hll_registers": hll_registers,
+    "hll_estimate": hll_estimate,
+    "seg_arg_extreme": seg_arg_extreme,
 }
 
 

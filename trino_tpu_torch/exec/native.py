@@ -42,6 +42,8 @@ SOURCES = {
     "range_sum": "range_sum.cu",
     "range_minmax": "range_minmax.cu",
     "seg_searchsorted": "seg_searchsorted.cu",
+    "hll": "hll.cu",
+    "seg_arg_extreme": "seg_arg_extreme.cu",
 }
 
 NVCC_FLAGS = [

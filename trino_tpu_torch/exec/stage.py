@@ -11,8 +11,10 @@ decision picks the next capacity.
 Aggregations inside a chain carry a static slot-table capacity; the
 chain returns per-aggregate overflow flags and the caller re-runs it
 with an 8x larger table when one trips (the FlatHash rehash analog).
-DISTINCT aggregates dedupe through a second ``group_by``; sketches and
-variance are not ported yet.
+DISTINCT aggregates dedupe through a second ``group_by``.
+``approx_distinct`` hashes values, not codes: a dictionary or pool
+column's lane gathers a content-hash table kept with its dictionary
+(pool).
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ import torch
 from trino_tpu_torch import types as T
 from trino_tpu_torch.exec import kernels as K
 from trino_tpu_torch.exec import shapes
-from trino_tpu_torch.exec.aggregates import _zero, compute_aggregate
-from trino_tpu_torch.expr.compiler import ColumnLayout, compile_expr
+from trino_tpu_torch.exec.aggregates import VARIANCE_FNS, _zero, compute_aggregate
+from trino_tpu_torch.expr.compiler import (
+    ColumnLayout, _dictionary_derived, compile_expr,
+)
 from trino_tpu_torch.expr.ir import InputRef
-from trino_tpu_torch.page import StringDictionary, pad_capacity
+from trino_tpu_torch.page import StringDictionary, content_hash64, pad_capacity
 from trino_tpu_torch.plan import nodes as P
 
 __all__ = ["FUSABLE", "ChainLayout", "plan_capacities", "build_chain"]
@@ -210,6 +214,7 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
     in_cap = layout.capacity
     out_cap = 8 if is_global else capacity
     dev = layout.device
+    hll_tables = _hll_tables(agg_meta, layout)
 
     out_layout = ChainLayout(
         names=group_keys + [sym for sym, *_ in agg_meta],
@@ -281,6 +286,17 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
             if arg_c is not None:
                 vals = [_bcast(*c.fn(env), in_cap) for c in arg_c]
                 arg = vals[0] if len(vals) == 1 else vals
+            if (
+                call.name in VARIANCE_FNS
+                and isinstance(call.args[0].type, T.DecimalType)
+            ):
+                # variance of DECIMAL is computed as DOUBLE over the true
+                # values, not the unscaled integers
+                d, v = arg
+                x = d.to(torch.float64)
+                # a tensor division: over a Python number torch on cuda
+                # multiplies by the reciprocal, which rounds differently
+                arg = (x / torch.full_like(x, 10.0 ** call.args[0].type.scale), v)
             if filter_c is not None:
                 fd, fv = filter_c.fn(env)
                 contrib = contrib & (fd if fv is None else (fd & fv))
@@ -302,6 +318,8 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
                     shifted, d_arg, contrib, in_cap,
                     tuple(width_list) + (dwidth,),
                 )
+            if call.name == "approx_distinct":
+                arg = _hll_lane(arg, hll_tables.get(sym), call.args[0].type)
             prepared.append((sym, call, arg, contrib))
         if info is not None:
             _presort_shared(prepared, info, share)
@@ -319,6 +337,60 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
     return step, out_layout
 
 
+def _hll_tables(agg_meta, layout: ChainLayout) -> dict:
+    """Per approx_distinct aggregate over a VARCHAR: ("code", table) for
+    a dictionary column, ("id", table) for a hash-coded column whose pool
+    is reachable; the table holds ``content_hash64`` of the values (u64
+    bits in int64) on the chain's device, kept with the dictionary
+    (pool) so warm runs reuse it."""
+    tables = {}
+    for sym, call, arg_c, _f in agg_meta:
+        if call.name != "approx_distinct" or not arg_c:
+            continue
+        d = arg_c[0].dictionary
+        kind = "code"
+        if d is None:
+            a0 = call.args[0]
+            d = layout.pools.get(a0.name) if isinstance(a0, InputRef) else None
+            kind = "id"
+        if d is None:
+            continue
+
+        def build(d=d):
+            h = content_hash64(d.values) if len(d.values) else np.zeros(1, np.uint64)
+            return torch.from_numpy(h.view(np.int64)).to(layout.device)
+
+        tables[sym] = (kind, _dictionary_derived(
+            d, ("content_hash64", str(layout.device)), build,
+        ))
+    return tables
+
+
+def _hll_lane(arg, table, arg_type):
+    """approx_distinct's argument as ((lane, hashed), valid): content
+    hashes gathered by code or pool id; the raw hash lane of a pool that
+    is not reachable; else the values, which ``hll_registers`` hashes
+    (``dev_hash64``)."""
+    d, v = arg
+    if table is not None:
+        kind, tbl = table
+        idx = d[:, 1] if kind == "id" else d
+        return (tbl[idx.long().clamp(0, tbl.shape[0] - 1)], True), v
+    if d.dim() == 2 and isinstance(arg_type, T.VarcharType):
+        # hash-coded column without a reachable pool: the process-local
+        # hash lane (correct within one process)
+        return (d[:, 0].contiguous(), True), v
+    return (d, False), v
+
+
+#: aggregates that read their arguments in original row order (or sort
+#: them their own way): nothing of theirs is gathered in advance
+_ROW_ORDER = {
+    "approx_distinct", "approx_percentile", "max_by", "min_by",
+    "any_value", "arbitrary",
+}
+
+
 def _presort_shared(prepared, info, share):
     """Gather every column the step's aggregates need into group-sorted
     order, same-dtype columns stacked and gathered by ``perm`` in one
@@ -326,14 +398,17 @@ def _presort_shared(prepared, info, share):
     of ``compute_aggregate`` consult (its keys mirror
     ``aggregates._Reducer``'s). The stack is [k, n], so each unstacked
     column is contiguous: torch's eager elementwise ops read a column
-    of an [n, k] stack with stride k."""
+    of an [n, k] stack with stride k. ``calls`` counts its uses."""
+    _presort_shared.calls += 1
     items: dict[int, torch.Tensor] = {}
 
     def want(x):
         if x is not None and id(x) not in items:
             items[id(x)] = x
 
-    for _sym, _call, arg, contrib in prepared:
+    for _sym, call, arg, contrib in prepared:
+        if call.name in _ROW_ORDER:
+            continue
         eff = contrib
         if isinstance(arg, list):
             for d, v in arg:
@@ -370,6 +445,9 @@ def _presort_shared(prepared, info, share):
             stacked = torch.stack(xs)[:, info.perm]
             for i, x in enumerate(xs):
                 share[("sorted", id(x))] = (x, stacked[i])
+
+
+_presort_shared.calls = 0
 
 
 def _dedupe(key_cols, arg, live, page_capacity, widths=None):

@@ -32,6 +32,7 @@ from trino_tpu_torch import types as T
 __all__ = [
     "StringDictionary", "HashStringPool", "HashCollision", "Column", "Page",
     "pad_capacity", "torch_dtype", "page_from_numpy", "unify_dictionaries",
+    "content_hash64",
 ]
 
 _TORCH_DTYPES = {
@@ -48,6 +49,38 @@ _TORCH_DTYPES = {
 def torch_dtype(np_dtype) -> torch.dtype:
     """The torch dtype carrying a SQL type's numpy storage dtype."""
     return _TORCH_DTYPES[np.dtype(np_dtype)]
+
+
+def content_hash64(strings: np.ndarray) -> np.ndarray:
+    """Deterministic 64-bit content hash of a string array, vectorized.
+
+    Views the fixed-width UCS4 representation as uint32 lanes and folds
+    them with an FNV-style polynomial, one vector op per character
+    column. Unlike ``hash()`` (which PYTHONHASHSEED randomizes per
+    process) the result is identical in every process, so HLL registers
+    over the same values always agree."""
+    arr = np.asarray(strings)
+    if arr.dtype.kind != "U":
+        arr = arr.astype(str)
+    n = len(arr)
+    if n == 0:
+        return np.zeros(0, dtype=np.uint64)
+    width = max(arr.dtype.itemsize // 4, 1)
+    lanes = np.ascontiguousarray(arr).view(np.uint32).reshape(n, width)
+    h = np.full(n, 0xCBF29CE484222325, dtype=np.uint64)
+    prime = np.uint64(0x100000001B3)
+    with np.errstate(over="ignore"):
+        for j in range(width):
+            lane = lanes[:, j].astype(np.uint64)
+            # skip zero lanes (UCS4 tail padding): the hash must not
+            # depend on the array's fixed width
+            upd = (h ^ lane) * prime
+            h = np.where(lane != 0, upd, h)
+        # final avalanche so short strings spread over all 64 bits
+        h ^= h >> np.uint64(33)
+        h *= np.uint64(0xFF51AFD7ED558CCD)
+        h ^= h >> np.uint64(33)
+    return h
 
 
 def pad_capacity(n: int, minimum: int = 8) -> int:
@@ -127,7 +160,7 @@ class HashStringPool:
     """
 
     __slots__ = (
-        "values", "token", "_hashes", "_sorted", "_joinable",
+        "values", "token", "_hashes", "_sorted", "_joinable", "derived",
     )
 
     def __init__(self, values: np.ndarray):
@@ -137,6 +170,9 @@ class HashStringPool:
         #: (unique sorted hashes, one representative string per hash)
         self._sorted: tuple[np.ndarray, np.ndarray] | None = None
         self._joinable: set[int] = set()
+        #: tables computed once from the values (approx_distinct's
+        #: content hashes), by key, as ``StringDictionary.derived``
+        self.derived: OrderedDict = OrderedDict()
 
     def hashes(self) -> np.ndarray:
         if self._hashes is None:

@@ -5,7 +5,12 @@ q98 (``ds_q98``), q86 (``ds_q86``), q51 at a chosen month window
 (``q51_sql``, ``ds_q51``) with the totals of its windowed relation
 (``q51_totals_sql``, ``ds_q51_totals``) and a RANGE offset window
 (``RANGE7_SQL``, ``ds_range7``). Ranks, running sums and RANGE frames are
-computed with numpy alone.
+computed with numpy alone. The aggregate functions' statements
+(``statements.SKETCH_CARD``: ``ds_sketch_item``, ``ds_sketch_global``,
+``ds_q17_store``, ``ds_q39_inv``) build their HLL registers with
+``np.maximum.at``, their percentiles and ``*_by`` rows with stable
+sorts, and their variances from exact integer sums with the engine's
+float64 formula.
 
 An independent check of the engine's answers: the same generated data
 (``connectors.tpch.generator.TpchData``: dates as epoch days, decimals
@@ -31,12 +36,14 @@ from fractions import Fraction
 import numpy as np
 
 from trino_tpu_torch import types as T
+from trino_tpu_torch.page import content_hash64
 
 __all__ = [
     "q01", "q02", "q03", "q04", "q09", "q11", "q13", "q14", "q16", "q17",
     "q18", "q20", "q21", "q22", "fj", "FJ_SQL", "q11_sql", "q18_sql",
     "rows_match", "ds_q03", "ds_q98", "ds_q86", "ds_q51", "ds_q51_totals",
     "ds_range7", "q51_sql", "q51_totals_sql", "RANGE7_SQL",
+    "ds_sketch_item", "ds_sketch_global", "ds_q17_store", "ds_q39_inv",
 ]
 
 #: a full outer join with unmatched rows on both sides (no TPC-H query
@@ -317,9 +324,19 @@ def fj(data) -> list[tuple]:
     )]
 
 
+#: DOUBLE tolerances by statement (1e-12 elsewhere): the variances and
+#: averages of integer arguments are exact (the same float64 operations
+#: on exact sums); ds_q39_inv sums a million doubles in another order
+_REL_TOL = {
+    "ds_sketch_item": 0.0, "ds_sketch_global": 0.0, "ds_q17_store": 0.0,
+    "ds_q39_inv": 1e-9,
+}
+
+
 def rows_match(name: str, got, want) -> bool:
     """The engine's rows against a reference's: equal, with DOUBLEs to
-    relative 1e-12 (Q14, Q17; a NaN matches nothing) and, for Q11, whose
+    relative 1e-12 (Q14, Q17; a NaN matches nothing; ``_REL_TOL`` for
+    the aggregate functions' statements) and, for Q11, whose
     ORDER BY value leaves ties in no defined order, the value column
     equal in order and the rows equal as a set."""
     if len(got) != len(want):
@@ -336,13 +353,14 @@ def rows_match(name: str, got, want) -> bool:
         if [key(r) for r in got] != [key(r) for r in want]:
             return False
         got, want = sorted(got, key=_row_key), sorted(want, key=_row_key)
+    rel = _REL_TOL.get(name, 1e-12)
     for g, w in zip(got, want):
         if len(g) != len(w):
             return False
         for a, b in zip(g, w):
             if isinstance(b, float):
                 if not isinstance(a, float) or not math.isclose(
-                    a, b, rel_tol=1e-12, abs_tol=0.0
+                    a, b, rel_tol=rel, abs_tol=0.0
                 ):
                     return False
             elif type(a) is not type(b) or a != b:
@@ -926,3 +944,245 @@ def ds_range7(data) -> list[tuple]:
         (int(st), int(c), _dec(int(t), 2))
         for st, c, t in zip(stores, cnt.sum(axis=1), totals)
     ]
+
+
+# ---- the aggregate functions' TPC-DS statements ---------------------------------
+
+def _splitmix64(v: np.ndarray) -> np.ndarray:
+    """The splitmix64 finalizer of int64 values, as uint64 (the HLL value
+    hash of a numeric lane)."""
+    v = np.asarray(v, dtype=np.int64).view(np.uint64).copy()
+    with np.errstate(over="ignore"):
+        v ^= v >> np.uint64(30)
+        v *= np.uint64(0xBF58476D1CE4E5B9)
+        v ^= v >> np.uint64(27)
+        v *= np.uint64(0x94D049BB133111EB)
+        v ^= v >> np.uint64(31)
+    return v
+
+
+def _leading_zeros(w: np.ndarray) -> np.ndarray:
+    """Leading zero bits of each uint64 (64 for 0)."""
+    out = np.full(len(w), 64, dtype=np.int64)
+    nz = w != 0
+    x = w[nz]
+    n = np.zeros(len(x), dtype=np.int64)
+    for s in (32, 16, 8, 4, 2, 1):
+        top = (x >> np.uint64(64 - s)) == 0
+        n += np.where(top, s, 0)
+        x = np.where(top, x << np.uint64(s), x)
+    out[nz] = n
+    return out
+
+
+def _hll_estimates(group: np.ndarray, n_groups: int, h: np.ndarray, m: int) -> list[int]:
+    """HLL estimates of each group's uint64 hashes: registers by
+    ``np.maximum.at`` (each register the largest rho = leading zeros of
+    the hash's low bits + 1, clamped to 64 - b + 1), then the standard
+    estimate with the linear-counting correction, rounded half to even."""
+    b = m.bit_length() - 1
+    bucket = (h >> np.uint64(64 - b)).astype(np.int64)
+    with np.errstate(over="ignore"):
+        rho = np.minimum(_leading_zeros(h << np.uint64(b)) + 1, 64 - b + 1)
+    reg = np.zeros(n_groups * m, dtype=np.int64)
+    np.maximum.at(reg, np.asarray(group, dtype=np.int64) * m + bucket, rho)
+    reg = reg.reshape(n_groups, m)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    inv = np.ldexp(1.0, -reg).sum(axis=1)
+    raw = alpha * m * m / inv
+    zeros = (reg == 0).sum(axis=1).astype(np.float64)
+    lin = m * np.log(np.where(zeros > 0, m / np.maximum(zeros, 1.0), 1.0))
+    est = np.where((raw <= 2.5 * m) & (zeros > 0), lin, raw)
+    return [int(e) for e in np.round(est)]
+
+
+def _variance(s1: int, s2: int, n: int, pop: bool, root: bool):
+    """The engine's variance over exact integer sums: float64 s1, s2 and
+    m2 = s2 - s1^2 / n clamped at 0; NULL below 1 (pop) or 2 rows."""
+    if n < (1 if pop else 2):
+        return None
+    f1, f2, fn = float(s1), float(s2), float(n)
+    m2 = max(f2 - (f1 * f1) / max(fn, 1.0), 0.0)
+    var = m2 / max(fn if pop else fn - 1.0, 1.0)
+    return math.sqrt(var) if root else var
+
+
+def _runs(keys_sorted: np.ndarray):
+    """(starts, counts) of the runs of equal values of a sorted array."""
+    if len(keys_sorted) == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    starts = np.flatnonzero(np.r_[True, keys_sorted[1:] != keys_sorted[:-1]])
+    counts = np.diff(np.r_[starts, len(keys_sorted)])
+    return starts, counts
+
+
+def _percentile_at(starts, counts, q: float) -> np.ndarray:
+    """Sorted position of each group's percentile q: its start plus
+    round(q * (count - 1)), half to even."""
+    offs = np.round(q * (counts.astype(np.float64) - 1.0)).astype(np.int64)
+    return starts + np.clip(offs, 0, np.maximum(counts - 1, 0))
+
+
+def ds_sketch_item(data) -> list[tuple]:
+    """``statements.SKETCH_CARD["ds_sketch_item"]``: per store_sales item,
+    count(*), approx_distinct of the customer, the median net paid,
+    max_by / min_by of the ticket by net paid (ties to the first row in
+    scan order), arbitrary store (the first row in scan order), bool_or
+    of quantity > 95, stddev_samp and var_pop of quantity."""
+    item = _ds(data, "store_sales", "ss_item_sk").astype(np.int64)
+    cust = _ds(data, "store_sales", "ss_customer_sk").astype(np.int64)
+    paid = _ds(data, "store_sales", "ss_net_paid").astype(np.int64)
+    ticket = _ds(data, "store_sales", "ss_ticket_number").astype(np.int64)
+    store = _ds(data, "store_sales", "ss_store_sk").astype(np.int64)
+    qty = _ds(data, "store_sales", "ss_quantity").astype(np.int64)
+    scan = np.argsort(item, kind="stable")  # scan order within each item
+    starts, counts = _runs(item[scan])
+    gid = np.repeat(np.arange(len(starts)), counts)
+    group = np.empty(len(item), dtype=np.int64)
+    group[scan] = gid
+    est = _hll_estimates(group, len(starts), _splitmix64(cust), 512)
+    by_paid = np.lexsort((paid, item))  # stable: ties keep scan order
+    by_paid_desc = np.lexsort((-paid, item))
+    median = paid[by_paid[_percentile_at(starts, counts, 0.5)]]
+    big = np.logical_or.reduceat((qty > 95)[scan], starts) if len(starts) else []
+    s1 = _group_sums(group, qty, len(starts))
+    s2 = _group_sums(group, qty * qty, len(starts))
+    return [
+        (int(item[scan[s]]), int(c), est[g], _dec(int(median[g]), 2),
+         int(ticket[by_paid_desc[s]]), int(ticket[by_paid[s]]),
+         int(store[scan[s]]), bool(big[g]),
+         _variance(int(s1[g]), int(s2[g]), int(c), False, True),
+         _variance(int(s1[g]), int(s2[g]), int(c), True, False))
+        for g, (s, c) in enumerate(zip(starts, counts))
+    ]
+
+
+def ds_sketch_global(data) -> list[tuple]:
+    """``statements.SKETCH_CARD["ds_sketch_global"]``: over store_sales
+    joined to item, approx_distinct of the customer (a numeric lane) and
+    of the brand (content hashes of the strings), the 0.9 percentile of
+    the sales price, max_by / min_by of the item id by net profit (the
+    first such sale in scan order), stddev_pop of quantity and bool_and
+    of quantity > 0."""
+    irow, iok = _dim_rows(
+        _ds(data, "item", "i_item_sk"), _ds(data, "store_sales", "ss_item_sk")
+    )
+    r = irow[iok]
+    cust = _ds(data, "store_sales", "ss_customer_sk")[iok].astype(np.int64)
+    price = np.sort(_ds(data, "store_sales", "ss_sales_price")[iok].astype(np.int64))
+    profit = _ds(data, "store_sales", "ss_net_profit")[iok].astype(np.int64)
+    qty = _ds(data, "store_sales", "ss_quantity")[iok].astype(np.int64)
+    item_id = _ds(data, "item", "i_item_id").astype(str)[r]
+    brand_hash = content_hash64(_ds(data, "item", "i_brand").astype(str))[r]
+    n = len(r)
+    zeros = np.zeros(n, dtype=np.int64)
+    if n == 0:
+        return [(0, 0, None, None, None, None, None)]
+    at = _percentile_at(np.zeros(1, np.int64), np.asarray([n]), 0.9)[0]
+    return [(
+        _hll_estimates(zeros, 1, _splitmix64(cust), 4096)[0],
+        _hll_estimates(zeros, 1, brand_hash, 4096)[0],
+        _dec(int(price[at]), 2),
+        str(item_id[int(np.argmax(profit == profit.max()))]),
+        str(item_id[int(np.argmax(profit == profit.min()))]),
+        _variance(_exact_sum(qty), _exact_sum(qty * qty), n, True, True),
+        bool(np.all(qty > 0)),
+    )]
+
+
+def _pairs(left: list, right: list):
+    """(left rows, right rows) of the equi-join of two key tuples."""
+    lk = np.rec.fromarrays([np.asarray(c, dtype=np.int64) for c in left])
+    rk = np.rec.fromarrays([np.asarray(c, dtype=np.int64) for c in right])
+    _, inv = np.unique(np.concatenate([lk, rk]), return_inverse=True)
+    inv = inv.reshape(-1)
+    li, ri = inv[: len(lk)], inv[len(lk):]
+    order = np.argsort(ri, kind="stable")
+    lo = np.searchsorted(ri[order], li, side="left")
+    cnt = np.searchsorted(ri[order], li, side="right") - lo
+    lrows = np.repeat(np.arange(len(li)), cnt)
+    first = np.repeat(lo - np.r_[0, np.cumsum(cnt)[:-1]], cnt)
+    rrows = order[np.arange(len(lrows)) + first]
+    return lrows, rrows
+
+
+def ds_q17_store(data) -> list[tuple]:
+    """``statements.SKETCH_CARD["ds_q17_store"]``: TPC-DS q17 without its
+    catalog_sales leg, every group: per (item id, store state), count,
+    avg and stddev_samp of the sale's quantity and of the returned
+    quantity."""
+    d_sk = _ds(data, "date_dim", "d_date_sk")
+    quarter = _ds(data, "date_dim", "d_quarter_name").astype(str)
+    srow, sok = _dim_rows(d_sk, _ds(data, "store_sales", "ss_sold_date_sk"))
+    ss_sel = np.flatnonzero(sok & (quarter[srow] == "2001Q1"))
+    rrow, rok = _dim_rows(d_sk, _ds(data, "store_returns", "sr_returned_date_sk"))
+    sr_sel = np.flatnonzero(
+        rok & np.isin(quarter[rrow], ["2001Q1", "2001Q2", "2001Q3"])
+    )
+    keys = ("customer_sk", "item_sk", "ticket_number")
+    li, ri = _pairs(
+        [_ds(data, "store_sales", f"ss_{k}")[ss_sel] for k in keys],
+        [_ds(data, "store_returns", f"sr_{k}")[sr_sel] for k in keys],
+    )
+    ss_rows, sr_rows = ss_sel[li], sr_sel[ri]
+    irow, iok = _dim_rows(
+        _ds(data, "item", "i_item_sk"), _ds(data, "store_sales", "ss_item_sk")[ss_rows]
+    )
+    strow, stok = _dim_rows(
+        _ds(data, "store", "s_store_sk"), _ds(data, "store_sales", "ss_store_sk")[ss_rows]
+    )
+    ok = iok & stok
+    item_id = _ds(data, "item", "i_item_id").astype(str)[irow[ok]]
+    state = _ds(data, "store", "s_state").astype(str)[strow[ok]]
+    q1 = _ds(data, "store_sales", "ss_quantity")[ss_rows[ok]].astype(np.int64)
+    q2 = _ds(data, "store_returns", "sr_return_quantity")[sr_rows[ok]].astype(np.int64)
+    uniq, inv = np.unique(np.rec.fromarrays([item_id, state]), return_inverse=True)
+    inv = inv.reshape(-1)
+    g = len(uniq)
+    cnt = np.bincount(inv, minlength=g)
+    out = []
+    sums = [(_group_sums(inv, q, g), _group_sums(inv, q * q, g)) for q in (q1, q2)]
+    for k in range(g):
+        row = [str(uniq[k][0]), str(uniq[k][1])]
+        for s1, s2 in sums:
+            c = int(cnt[k])
+            row += [c, float(s1[k]) / c,
+                    _variance(int(s1[k]), int(s2[k]), c, False, True)]
+        out.append(tuple(row))
+    return out
+
+
+def ds_q39_inv(data) -> list[tuple]:
+    """``statements.SKETCH_CARD["ds_q39_inv"]``: count(*), count(stdev),
+    sum(stdev) and sum(mean) over q39's inner ``inv`` aggregate
+    (stddev_samp and avg of the quantity on hand per warehouse, item and
+    month of 2001). The two sums add float64s in the order of the groups
+    (the engine's order differs: ``rows_match`` allows relative 1e-9)."""
+    drow, dok = _dim_rows(
+        _ds(data, "date_dim", "d_date_sk"), _ds(data, "inventory", "inv_date_sk")
+    )
+    year = _ds(data, "date_dim", "d_year")[drow]
+    wrow, wok = _dim_rows(
+        _ds(data, "warehouse", "w_warehouse_sk"),
+        _ds(data, "inventory", "inv_warehouse_sk"),
+    )
+    _, iok = _dim_rows(
+        _ds(data, "item", "i_item_sk"), _ds(data, "inventory", "inv_item_sk")
+    )
+    sel = dok & wok & iok & (year == 2001)
+    wh = _ds(data, "inventory", "inv_warehouse_sk")[sel].astype(np.int64)
+    item = _ds(data, "inventory", "inv_item_sk")[sel].astype(np.int64)
+    moy = _ds(data, "date_dim", "d_moy")[drow[sel]].astype(np.int64)
+    qoh = _ds(data, "inventory", "inv_quantity_on_hand")[sel].astype(np.int64)
+    _, inv = np.unique(np.rec.fromarrays([wh, item, moy]), return_inverse=True)
+    inv = inv.reshape(-1)
+    g = int(inv.max(initial=-1)) + 1
+    cnt = np.bincount(inv, minlength=g)
+    s1 = _group_sums(inv, qoh, g)
+    s2 = _group_sums(inv, qoh * qoh, g)
+    stdev = [_variance(int(a), int(b), int(c), False, True)
+             for a, b, c in zip(s1, s2, cnt)]
+    have = [s for s in stdev if s is not None]
+    means = [float(a) / int(c) for a, c in zip(s1, cnt)]
+    return [(g, len(have), math.fsum(have) if have else None,
+             math.fsum(means) if means else None)]

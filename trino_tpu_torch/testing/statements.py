@@ -20,6 +20,18 @@ cume_dist and RANGE offset frames over integer, decimal and nullable
 keys, ascending and descending), and a float window sum whose small
 partition sits beside a huge one.
 
+``AGGREGATE_STATEMENTS`` exercise approx_distinct (numeric, dictionary
+VARCHAR, grouped, over NULLs and under a FILTER), approx_percentile
+(global, grouped, over NULLs, over decimal(38) sums), max_by / min_by
+(grouped, global, VARCHAR values), arbitrary / any_value, bool_and /
+bool_or and the variance family over integer, double and decimal
+arguments; ``AGGREGATE_SQLITE`` holds sqlite forms where sqlite can
+compute the same answer.
+
+``SKETCH_CARD`` holds the TPC-DS statements of these functions that the
+card runs at SF1 and SF10 (``ds_q39_inv`` at SF1 only), with exact
+references in ``numpy_reference``.
+
 The differential tests (port against the JAX package and sqlite) and
 the card tests (cuda against cpu) share them.
 """
@@ -31,6 +43,7 @@ from trino_tpu_torch.testing.numpy_reference import FJ_SQL, q18_sql
 
 __all__ = [
     "JOIN_STATEMENTS", "STRING_STATEMENTS", "WINDOW_STATEMENTS", "SQLITE_FORMS",
+    "AGGREGATE_STATEMENTS", "AGGREGATE_SQLITE", "SKETCH_CARD",
 ]
 
 _IN_PROBE = "select _col0 from (values 1, 3, null) a where _col0 "
@@ -341,4 +354,205 @@ SQLITE_FORMS = {
         "(partition by column1 order by column2) "
         f"from (values {_FLOAT_ROWS}) order by 1, 2"
     ),
+}
+
+
+_GV = (
+    "(select _col0 g, _col1 v from (values (1, 10), (1, 20), (1, 30), "
+    "(1, null), (2, 5), (2, null), (2, 7), (3, null)) t0) t"
+)
+
+
+def _var_sqlite(x: str, pop: bool, root: bool) -> str:
+    """A sqlite form of the variance family (sqlite has none)."""
+    n = f"count({x})"
+    m2 = f"(sum({x} * {x}) - sum({x}) * sum({x}) / {n})"
+    v = f"({m2} / ({n}{'' if pop else ' - 1'}))"
+    return f"sqrt({v})" if root else v
+
+
+AGGREGATE_STATEMENTS = {
+    "approx_distinct_global": "select approx_distinct(o_custkey) from orders",
+    "approx_distinct_varchar": "select approx_distinct(c_name) from customer",
+    "approx_distinct_comment": "select approx_distinct(l_comment) from lineitem",
+    "approx_distinct_grouped": (
+        "select o_orderstatus, approx_distinct(o_custkey) from orders "
+        "group by o_orderstatus"
+    ),
+    "approx_distinct_nulls": f"select g, approx_distinct(v) from {_GV} group by g",
+    "approx_distinct_filter": (
+        "select approx_distinct(case when o_orderstatus = 'P' then o_custkey end), "
+        "approx_distinct(o_clerk) from orders"
+    ),
+    "approx_distinct_empty": (
+        "select approx_distinct(o_custkey) from orders where o_custkey < 0"
+    ),
+    "max_by_min_by": (
+        "select o_custkey, max_by(o_orderkey, o_totalprice), "
+        "min_by(o_orderkey, o_totalprice) "
+        "from orders where o_custkey < 20 group by o_custkey order by 1"
+    ),
+    "max_by_varchar_global": (
+        "select max_by(n_name, n_nationkey), min_by(n_name, n_nationkey) "
+        "from nation"
+    ),
+    "max_by_ties_and_nulls": (
+        "select l_returnflag, max_by(l_orderkey, l_quantity), "
+        "min_by(l_orderkey, l_quantity), max_by(l_comment, l_discount), "
+        "min_by(nullif(l_linenumber, 1), l_tax) from lineitem "
+        "group by l_returnflag order by 1"
+    ),
+    "max_by_double_key": (
+        "select o_orderpriority, max_by(o_orderkey, o_totalprice * 1e0), "
+        "min_by(o_orderkey, o_totalprice * -1e0) from orders "
+        "group by o_orderpriority order by 1"
+    ),
+    "approx_percentile_global": (
+        "select approx_percentile(l_quantity, 0.5) from lineitem"
+    ),
+    "approx_percentile_grouped": (
+        "select l_linenumber, approx_percentile(l_quantity, 0.9) "
+        "from lineitem group by l_linenumber order by 1"
+    ),
+    "approx_percentile_nulls": (
+        f"select g, approx_percentile(v, 0.5) from {_GV} group by g order by 1"
+    ),
+    "approx_percentile_wide_decimal": (
+        "select approx_percentile(s, 0.5) from "
+        "(select o_custkey, sum(o_totalprice) s from orders group by o_custkey)"
+    ),
+    "approx_percentile_double": (
+        "select o_orderstatus, approx_percentile(o_totalprice * 1e0, 0.25), "
+        "approx_percentile(o_totalprice * 1e0, 1.0) from orders "
+        "group by o_orderstatus order by 1"
+    ),
+    "arbitrary_any_value": (
+        "select o_orderstatus, arbitrary(o_orderkey), any_value(o_clerk), "
+        "count(*) from orders group by o_orderstatus order by 1"
+    ),
+    "arbitrary_nulls": f"select g, arbitrary(v) from {_GV} group by g order by 1",
+    "bool_and_or": (
+        "select o_orderstatus, bool_and(o_totalprice > 1000), "
+        "bool_or(o_totalprice > 400000) from orders "
+        "group by o_orderstatus order by 1"
+    ),
+    "bool_and_or_global": (
+        "select bool_and(l_quantity > 0), bool_or(l_quantity > 50), "
+        "bool_and(l_quantity > 1) from lineitem"
+    ),
+    "variance_int": (
+        "select o_orderstatus, stddev(o_custkey), stddev_samp(o_custkey), "
+        "stddev_pop(o_custkey), variance(o_custkey), var_samp(o_custkey), "
+        "var_pop(o_custkey) from orders group by o_orderstatus order by 1"
+    ),
+    "variance_double": (
+        "select l_returnflag, stddev_samp(l_extendedprice * 1e0), "
+        "var_pop(l_extendedprice * 1e0) from lineitem "
+        "group by l_returnflag order by 1"
+    ),
+    "variance_decimal": (
+        "select l_linestatus, stddev_samp(l_extendedprice), "
+        "var_samp(l_discount), stddev_pop(l_tax) from lineitem "
+        "group by l_linestatus order by 1"
+    ),
+    "variance_global_and_small": (
+        "select var_samp(v), stddev_pop(v), var_pop(v), stddev_samp(g) "
+        f"from {_GV} where g = 2"
+    ),
+    "variance_single_row_groups": (
+        f"select g, var_samp(v), var_pop(v), stddev(v) from {_GV} "
+        "group by g order by 1"
+    ),
+}
+
+#: sqlite forms of the statements that sqlite can answer (no HLL, no
+#: percentiles: those are held to the JAX package's rows and exact counts)
+AGGREGATE_SQLITE = {
+    "max_by_min_by": (
+        "select o_custkey, "
+        "(select o2.o_orderkey from orders o2 where o2.o_custkey = o.o_custkey"
+        "  order by o2.o_totalprice desc limit 1), "
+        "(select o3.o_orderkey from orders o3 where o3.o_custkey = o.o_custkey"
+        "  order by o3.o_totalprice asc limit 1) "
+        "from orders o where o_custkey < 20 group by o_custkey order by 1"
+    ),
+    "max_by_varchar_global": (
+        "select (select n_name from nation order by n_nationkey desc limit 1), "
+        "(select n_name from nation order by n_nationkey limit 1)"
+    ),
+    "bool_and_or": (
+        "select o_orderstatus, min(o_totalprice > 1000), "
+        "max(o_totalprice > 400000) from orders "
+        "group by o_orderstatus order by 1"
+    ),
+    "bool_and_or_global": (
+        "select min(l_quantity > 0), max(l_quantity > 50), "
+        "min(l_quantity > 1) from lineitem"
+    ),
+    "variance_int": (
+        "select o_orderstatus, "
+        + ", ".join(
+            _var_sqlite("(o_custkey * 1.0)", pop, root)
+            for pop, root in ((False, True), (False, True), (True, True),
+                              (False, False), (False, False), (True, False))
+        )
+        + " from orders group by o_orderstatus order by 1"
+    ),
+    "variance_double": (
+        "select l_returnflag, "
+        + _var_sqlite("l_extendedprice", False, True) + ", "
+        + _var_sqlite("l_extendedprice", True, False)
+        + " from lineitem group by l_returnflag order by 1"
+    ),
+    "variance_decimal": (
+        "select l_linestatus, "
+        + _var_sqlite("l_extendedprice", False, True) + ", "
+        + _var_sqlite("l_discount", False, False) + ", "
+        + _var_sqlite("l_tax", True, True)
+        + " from lineitem group by l_linestatus order by 1"
+    ),
+    "approx_distinct_empty": "select 0",
+    "arbitrary_nulls": (
+        "select column1, (select t2.column2 from (values (1, 10), (1, 20), "
+        "(1, 30), (1, null), (2, 5), (2, null), (2, 7), (3, null)) t2 "
+        "where t2.column1 = t.column1 and t2.column2 is not null limit 1) "
+        "from (values (1, 0), (2, 0), (3, 0)) t order by 1"
+    ),
+}
+
+#: the card's statements of the aggregate functions over TPC-DS
+SKETCH_CARD = {
+    "ds_sketch_item": """select ss_item_sk, count(*), approx_distinct(ss_customer_sk),
+       approx_percentile(ss_net_paid, 0.5),
+       max_by(ss_ticket_number, ss_net_paid),
+       min_by(ss_ticket_number, ss_net_paid),
+       arbitrary(ss_store_sk), bool_or(ss_quantity > 95),
+       stddev_samp(ss_quantity), var_pop(ss_quantity)
+from store_sales group by ss_item_sk order by ss_item_sk""",
+    "ds_sketch_global": """select approx_distinct(ss_customer_sk), approx_distinct(i_brand),
+       approx_percentile(ss_sales_price, 0.9),
+       max_by(i_item_id, ss_net_profit), min_by(i_item_id, ss_net_profit),
+       stddev_pop(ss_quantity), bool_and(ss_quantity > 0)
+from store_sales, item where ss_item_sk = i_item_sk""",
+    "ds_q17_store": """select i_item_id, s_state,
+       count(ss_quantity), avg(ss_quantity), stddev_samp(ss_quantity),
+       count(sr_return_quantity), avg(sr_return_quantity),
+       stddev_samp(sr_return_quantity)
+from store_sales, store_returns, date_dim d1, date_dim d2, store, item
+where d1.d_quarter_name = '2001Q1' and d1.d_date_sk = ss_sold_date_sk
+  and i_item_sk = ss_item_sk and s_store_sk = ss_store_sk
+  and ss_customer_sk = sr_customer_sk and ss_item_sk = sr_item_sk
+  and ss_ticket_number = sr_ticket_number
+  and sr_returned_date_sk = d2.d_date_sk
+  and d2.d_quarter_name in ('2001Q1', '2001Q2', '2001Q3')
+group by i_item_id, s_state
+order by i_item_id, s_state""",
+    "ds_q39_inv": """select count(*), count(stdev), sum(stdev), sum(mean)
+from (select w_warehouse_name, w_warehouse_sk, i_item_sk, d_moy,
+             stddev_samp(inv_quantity_on_hand) stdev,
+             avg(inv_quantity_on_hand) mean
+      from inventory, item, warehouse, date_dim
+      where inv_item_sk = i_item_sk and inv_warehouse_sk = w_warehouse_sk
+        and inv_date_sk = d_date_sk and d_year = 2001
+      group by w_warehouse_name, w_warehouse_sk, i_item_sk, d_moy) foo""",
 }
