@@ -12,7 +12,8 @@ Run from the repository root, with no arguments:
    K4 expand_matches, K5 range_any, K6 scatter_any, K7 hash_keys, K8
    pack_words, K9 seg_minmax, K10 order_words, W1 window_peers, W2
    range_sum, W3 range_minmax, W4 seg_searchsorted, A1 hll_registers, A2
-   hll_estimate, A3 seg_arg_extreme) runs on the card at the main path's
+   hll_estimate, A3 seg_arg_extreme, A4 hll_merge, A5 quant_summary, A6
+   quant_merge) runs on the card at the main path's
    shapes (TPC-H SF10 scale: 60M rows with 4 and with 1.5M groups, and 8M
    partsupp rows in 2M groups; a 15M-row build side against a 60M-row
    probe; 15M probe rows of 1-7 matches each, ~60M expanded positions,
@@ -27,9 +28,14 @@ Run from the repository root, with no arguments:
    and in 180K items (512), the estimates of those 180K x 512 registers,
    and the arg-extreme of 28.8M rows in 180K and in 120 groups over int64
    and float64 keys with ties, NaN, -0.0 and groups with no contributing
-   row), is held against its plain torch version on the same inputs
-   (integers, booleans, positions, registers, estimates, min/max and sort
-   words exactly, float64 group sums to relative 1e-12 and float64 frame
+   row; the FINAL register max of five chunks' partial registers of 180K
+   items x 512, of 5 x 4096 globally and with one group holding every
+   partial row; the quantile summaries of one 5.8M-row chunk in 180K
+   items (k = 256) and globally (k = 1024); their merge over 5 x 180K
+   partial rows of 256 points and over one group of 5 x 1024), is held
+   against its plain torch version on the same inputs
+   (integers, booleans, positions, registers, estimates, summaries,
+   picks, min/max and sort words exactly, float64 group sums to relative 1e-12 and float64 frame
    sums to relative 1e-9 each; K1's representative flags and K10's
    permutation too), and is timed beside the plain version, one PyTorch
    library call that computes the same function where there is one, and
@@ -47,7 +53,12 @@ Run from the repository root, with no arguments:
    inside its time limit). Rows must equal the exact numpy reference
    (``trino_tpu_torch.testing.numpy_reference.rows_match``: Q14's and
    Q17's one DOUBLE to relative 1e-12), cold and in 3 warm runs; one more
-   warm run stops at the result page, before the rows are built.
+   warm run stops at the result page, before the rows are built. Then the
+   SF10 runner runs Q1, Q3 and Q18 again under ``hbm_budget_bytes`` = 1 GiB
+   (cold and 2 warm, against the same references): each must take its
+   spill path (Q1 the streamed chain with its PARTIAL/FINAL split, Q3 a
+   streamed probe or grace join, Q18 the streamed chain and the streamed
+   semi join) and keep the tracked working set within the budget.
 5. Main path, TPC-DS: the TPC-H runner is released, then
    ``QueryRunner.tpcds("sf1")`` and ``QueryRunner.tpcds("sf10")`` run
    q3, q98, q51 over 1999 (its text's months 1200-1211 count from 1900;
@@ -60,15 +71,23 @@ Run from the repository root, with no arguments:
    q17's store/returns relation and, at SF1 only, q39's inventory
    relation), each held against its exact numpy reference (q98's DOUBLE
    to relative 1e-12, the sums of ds_q39_inv's million doubles to
-   relative 1e-9, every other DOUBLE exactly), cold and in 3 warm runs;
-   the peak device memory of each scale is printed. A statement whose
-   join exceeds ``query_max_memory_per_node``'s default raises
-   ExceededMemoryLimitError (no spill tier yet) and then runs with the
-   cap at 64GB; the output says which. Each path runs with every
-   kernel's launch count set to 0 just before it: K1-K10 must be
-   launched on the TPC-H path and W1-W4 and A1-A3 on the TPC-DS path;
-   the launches of each query's runs, and the calls of count_true,
-   blocked_sum and _presort_shared on each path, are printed.
+   relative 1e-9, every other DOUBLE exactly), cold and in 3 warm runs,
+   all under ``query_max_memory_per_node``'s 2GB default: at SF10 the
+   joins of q98, q51, its totals, q86 and ds_sketch_global exceed it and
+   are revoked into the spill tier (each must show a revocation); any
+   ExceededMemoryLimitError outside ``OVER_CAP_RAISES`` fails the run.
+   Then ds_sketch_item runs under ``hbm_budget_bytes`` (128 MiB at SF1,
+   1 GiB at SF10): store_sales streams in the number of chunks that
+   ``spill.chunk_rows_for`` gives, and the rows equal the chunked numpy
+   twin (``numpy_reference.chunked_percentile`` over the same chunk
+   bounds; every other column the resident answer), each percentile
+   within the summaries' rank bound. The peak device memory of each
+   scale is printed. Each path runs with every kernel's launch count and
+   every spill path's entry count set to 0 just before it: K1-K10 must be
+   launched on the TPC-H path and W1-W4 and A1-A6 on the TPC-DS path;
+   the launches and spill entries of each query's runs, and the calls of
+   count_true, blocked_sum and _presort_shared on each path, are
+   printed.
 6. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1009,6 +1028,152 @@ def agg_phases(torch, np, K, shapes, dev) -> dict:
     return out
 
 
+def a4_phase(torch, K, states, contrib, group, caps) -> dict:
+    """A4 against its plain version, timed beside ``scatter_reduce_``
+    amax of the int8 registers over (group * m + register)."""
+    got = K.hll_merge(states, contrib, group, caps)
+    want = K.hll_merge_plain(states, contrib, group, caps)
+    torch.cuda.synchronize()
+    if not same(torch, got, want):
+        fail(f"hll_merge ({states.shape[0]} rows into {caps} groups) differs "
+             "from the plain version")
+    n, m = states.shape
+    gid = (torch.zeros(n, dtype=torch.int64, device=states.device)
+           if group is None else group.clamp(0, caps - 1))
+    idx = (gid[:, None] * m + torch.arange(m, device=states.device)).reshape(-1)
+    live = torch.where(contrib[:, None], states, torch.zeros_like(states)).reshape(-1)
+
+    def library():
+        out = torch.zeros(caps * m, dtype=torch.int8, device=states.device)
+        return out.scatter_reduce_(0, idx, live, reduce="amax")
+
+    if not same(torch, library().reshape(caps, m), got):
+        fail("hll_merge: the scatter_reduce_ yardstick computes another function")
+    case = {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.hll_merge(states, contrib, group, caps)),
+        "plain_ms": timed_ms(torch, lambda: K.hll_merge_plain(
+            states, contrib, group, caps)),
+        "library_ms": timed_ms(torch, library),
+        # the states (m B), contrib (1 B) and group id (8 B) of each
+        # partial row read once, the merged registers written once
+        "bound_ms": bound_ms(n * (m + 1 + (0 if group is None else 8)) + caps * m),
+        "rows": n, "groups": caps, "m": m,
+    }
+    del idx, live
+    return case
+
+
+def a5_phase(torch, np, K, A, shapes, dev, rows, n_groups, k) -> dict:
+    """A5 over one chunk of ``rows`` store_sales-like rows (int64 net
+    paid) in ``n_groups`` items (0: the global form), after the
+    summary's three stable sorts, against its plain version."""
+    rng = np.random.default_rng(SEED + 700 + k)
+    vd = torch.from_numpy(rng.integers(0, 2_000_000, size=rows)).to(dev)
+    eff = torch.from_numpy(rng.random(rows) >= 0.02).to(dev)
+    if n_groups:
+        item = torch.from_numpy(rng.integers(0, n_groups, size=rows)).to(dev)
+        cap = shapes.table_bucket(n_groups, 0)
+        info = K.group_by([(item, None)], torch.ones_like(eff), cap,
+                          widths=(int(n_groups - 1).bit_length(),))
+        starts = info.starts
+    else:
+        info, cap = None, 1
+        starts = torch.zeros(1, dtype=torch.int64, device=dev)
+    p = A._quant_sorted_perm(vd, eff, info)
+    cnt = A._Reducer(info, cap, eff).count()[: starts.shape[0]].contiguous()
+    got = K.quant_summary(vd, p, starts, cnt, k)
+    want = K.quant_summary_plain(vd, p, starts, cnt, k)
+    torch.cuda.synchronize()
+    if not same(torch, got.view(torch.int64), want.view(torch.int64)):
+        fail(f"quant_summary ({rows} rows, {n_groups} groups, k={k}) differs "
+             "from the plain version")
+    caps = starts.shape[0]
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.quant_summary(vd, p, starts, cnt, k)),
+        "plain_ms": timed_ms(torch, lambda: K.quant_summary_plain(vd, p, starts, cnt, k)),
+        "library_ms": None,  # no PyTorch call builds the k-point summary
+        # values and the sorted order (8 B each a row) read once, starts
+        # and counts (16 B a group), the float64 summary written once
+        "bound_ms": bound_ms(rows * 16 + caps * 16 + caps * (k + 1) * 8),
+        "rows": rows, "groups": caps, "k": k,
+    }
+
+
+def a6_phase(torch, np, K, dev, chunks, n_groups, caps, k) -> dict:
+    """A6 over the summaries of ``chunks`` chunks, one partial row per
+    group and chunk (0 groups: the global form), against its plain
+    version. The wrapper's time includes its two torch.sort passes."""
+    rng = np.random.default_rng(SEED + 800 + k)
+    rows = chunks * max(n_groups, 1)
+    pts = torch.sort(torch.from_numpy(
+        rng.integers(0, 2_000_000, size=(rows, k)).astype(np.float64)).to(dev), 1).values
+    cnt = torch.from_numpy(rng.integers(1, 64, size=rows).astype(np.float64)).to(dev)
+    states = torch.cat([pts, cnt[:, None]], 1).contiguous()
+    del pts
+    eff = torch.ones(rows, dtype=torch.bool, device=dev)
+    group = None
+    if n_groups:
+        group = torch.arange(n_groups, dtype=torch.int64, device=dev).repeat(chunks)
+    q = torch.tensor([0.5], dtype=torch.float64, device=dev)
+    got, has = K.quant_merge(states, eff, group, caps, q)
+    want, whas = K.quant_merge_plain(states, eff, group, caps, q)
+    torch.cuda.synchronize()
+    if not (same(torch, has, whas)
+            and same(torch, got.view(torch.int64), want.view(torch.int64))):
+        fail(f"quant_merge ({rows} partial rows x {k} points) differs from the "
+             "plain version")
+    case = {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.quant_merge(states, eff, group, caps, q), reps=3),
+        "plain_ms": timed_ms(torch, lambda: K.quant_merge_plain(
+            states, eff, group, caps, q), reps=3),
+        "library_ms": None,  # no PyTorch call merges weighted summaries
+        # the summaries, flags and group ids read once; a value and a flag
+        # written per group
+        "bound_ms": bound_ms(rows * ((k + 1) * 8 + 1 + (8 if group is not None else 0))
+                             + caps * 9),
+        "partial_rows": rows, "points": rows * k, "groups": caps,
+    }
+    del states, got, want
+    torch.cuda.empty_cache()
+    return case
+
+
+def split_phases(torch, np, K, A, shapes, dev) -> dict:
+    """A4-A6 at the SF10 shapes of the budgeted ds_sketch_item and
+    ds_sketch_global: five chunks' partial registers of 180K items x 512
+    (and globally 5 x 4096, and one group holding every partial row);
+    one 5.8M-row chunk's summaries in 180K items (k = 256) and globally
+    (k = 1024); the merge of 5 x 180K partial summaries of 256 points and
+    of one group's 5 x 1024."""
+    out = {}
+    rng = np.random.default_rng(SEED + 900)
+    chunks = 5
+    cap = shapes.table_bucket(DS_ITEMS, 0)
+    states = torch.from_numpy(
+        rng.integers(0, 24, size=(chunks * DS_ITEMS, 512)).astype(np.int8)).to(dev)
+    states[states < 12] = 0  # most registers of an item's chunk stay empty
+    contrib = torch.ones(chunks * DS_ITEMS, dtype=torch.bool, device=dev)
+    group = torch.arange(DS_ITEMS, dtype=torch.int64, device=dev).repeat(chunks)
+    out["a4_grouped"] = a4_phase(torch, K, states, contrib, group, cap)
+    out["a4_hot"] = a4_phase(torch, K, states, contrib, torch.zeros_like(group), 1024)
+    del states, group, contrib
+    glob = torch.from_numpy(
+        rng.integers(0, 30, size=(chunks, 4096)).astype(np.int8)).to(dev)
+    out["a4_global"] = a4_phase(
+        torch, K, glob, torch.ones(chunks, dtype=torch.bool, device=dev), None, 1)
+    torch.cuda.empty_cache()
+    chunk_rows = DS_SALES_ROWS // chunks
+    out["a5_grouped"] = a5_phase(torch, np, K, A, shapes, dev, chunk_rows, DS_ITEMS, 256)
+    out["a5_global"] = a5_phase(torch, np, K, A, shapes, dev, chunk_rows, 0, 1024)
+    torch.cuda.empty_cache()
+    out["a6_grouped"] = a6_phase(torch, np, K, dev, chunks, DS_ITEMS, cap, 256)
+    out["a6_global"] = a6_phase(torch, np, K, dev, chunks, 0, 1, 1024)
+    return out
+
+
 def count_true_phase(torch, np, K, dev) -> dict:
     """``kernels.count_true`` (a torch sum; the JAX package's blocked
     reduce only worked around an XLA bug) over a 60M-row bool mask."""
@@ -1039,20 +1204,27 @@ Q11_FRACTION = {"sf1": "0.0001000000", "sf10": "0.0000100000"}
 SF10_QUERIES = ("q01", "q03", "q18")
 
 
-def run_query(torch, K, runner, data, name, sql, ref, scale, R) -> dict:
-    """One statement: a cold run checked against its numpy reference,
-    then 3 warm runs that must give the same rows."""
+def run_query(torch, K, runner, data, name, sql, ref, scale, R, want=None,
+              warm_runs=3, label="") -> dict:
+    """One statement: a cold run checked against its numpy reference
+    (``want``, else ``ref(data)``), then ``warm_runs`` warm runs that must
+    give the same rows, then one to the result page. The entries into
+    each spill path in these runs are printed and returned."""
+    from trino_tpu_torch.exec import spill
+
     before = {k: fn.launches for k, fn in K.KERNELS.items()}
+    spill.reset_entries()
     tc = time.perf_counter()
     rows = runner.execute(sql).rows
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - tc) * 1e3
-    want = ref(data)
+    if want is None:
+        want = ref(data)
     if not R.rows_match(name, rows, want):
-        fail(f"{name} at {scale}: rows differ from the numpy reference"
+        fail(f"{name} at {scale}{label}: rows differ from the numpy reference"
              f"\n got  {rows[:3]}\n want {want[:3]}")
     warm = []
-    for _ in range(3):
+    for _ in range(warm_runs):
         tw = time.perf_counter()
         again = runner.execute(sql).rows
         torch.cuda.synchronize()
@@ -1066,16 +1238,25 @@ def run_query(torch, K, runner, data, name, sql, ref, scale, R) -> dict:
     runner.execute_page(sql)
     torch.cuda.synchronize()
     page_ms = (time.perf_counter() - tp) * 1e3
-    print(f"main path {name} {scale}: {len(rows)} rows equal the numpy "
+    entries = dict(spill.ENTRIES)
+    runs = warm_runs + 2
+    print(f"main path {name} {scale}{label}: {len(rows)} rows equal the numpy "
           f"reference; cold {cold_ms:.1f} ms, warm median "
           f"{statistics.median(warm):.2f} ms (range {min(warm):.2f}-"
           f"{max(warm):.2f}), to the result page {page_ms:.2f} ms; "
-          f"launches in 4 runs {per_query}", flush=True)
+          f"launches in {runs} runs {per_query}; spill entries {entries}",
+          flush=True)
     return {
         "rows": len(rows), "cold_ms": cold_ms, "warm_ms": warm,
         "warm_median_ms": statistics.median(warm), "page_ms": page_ms,
-        "launches_4_runs": per_query,
+        f"launches_{runs}_runs": per_query, "spill_entries": entries,
     }
+
+
+def spill_paths_taken(entries) -> list[str]:
+    from trino_tpu_torch.exec import spill
+
+    return [k for k in spill.PATHS if entries.get(k)]
 
 
 def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
@@ -1104,9 +1285,15 @@ def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
             fail(f"runner for {scale} is on {runner.device}")
         data = runner.metadata.connector("tpch").data(scale)
         torch.cuda.reset_peak_memory_stats()
+        wants = {}
         for name, sql, ref in queries:
+            wants[name] = ref(data)
             results[f"{name}_{scale}"] = run_query(
-                torch, K, runner, data, name, sql, ref, scale, R)
+                torch, K, runner, data, name, sql, ref, scale, R,
+                want=wants[name])
+        if scale == "sf10":
+            results.update(budgeted_tpch(torch, K, runner, data, queries,
+                                         wants, R))
         results[f"{scale}_peak_bytes"] = torch.cuda.max_memory_allocated()
         results[f"{scale}_seconds"] = time.perf_counter() - t0
         print(f"TPC-H {scale}: peak device memory "
@@ -1117,15 +1304,70 @@ def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
     return results
 
 
+#: the TPC-H budget at SF10: lineitem streams in about ten chunks
+TPCH_BUDGET = 1 << 30
+#: the spill paths each budgeted TPC-H statement must enter: all of one
+#: of the alternatives
+BUDGETED_PATHS = {
+    "q01": [{"run_chain_streamed"}],
+    "q03": [{"streamed_probe_join"}, {"grace_join"}],
+    "q18": [{"run_chain_streamed", "streamed_semi_join"}],
+}
+
+
+def budgeted_tpch(torch, K, runner, data, queries, wants, R) -> dict:
+    """Q1, Q3 and Q18 again on the SF10 runner under hbm_budget_bytes =
+    1 GiB (its planner statistics are warm): cold plus two warm runs, rows
+    equal to the resident runs' numpy references, the tracked working
+    set within the budget, and each statement through its spill path."""
+    out = {}
+    ex = runner.executor
+    runner.session.properties["hbm_budget_bytes"] = TPCH_BUDGET
+    try:
+        for name, sql, ref in queries:
+            ex.memory_pool.reset_peak()
+            res = run_query(torch, K, runner, data, name, sql, ref, "sf10", R,
+                            want=wants[name], warm_runs=2,
+                            label=f" under hbm_budget_bytes={TPCH_BUDGET}")
+            hwm = ex.tracked_bytes_hwm
+            res["tracked_bytes_hwm"] = hwm
+            taken = spill_paths_taken(res["spill_entries"])
+            if not any(alt <= set(taken) for alt in BUDGETED_PATHS[name]):
+                fail(f"budgeted {name} took none of {BUDGETED_PATHS[name]}: "
+                     f"{res['spill_entries']}")
+            if hwm > TPCH_BUDGET:
+                fail(f"budgeted {name}: tracked working set {hwm} B exceeds "
+                     f"the budget {TPCH_BUDGET} B")
+            print(f"budgeted {name} sf10: tracked working set "
+                  f"{hwm / 2**20:.1f} MiB of {TPCH_BUDGET / 2**20:.0f} MiB; "
+                  f"paths {taken}", flush=True)
+            out[f"{name}_sf10_budget"] = res
+    finally:
+        runner.session.properties.pop("hbm_budget_bytes")
+    return out
+
+
 #: q51 runs over 1999 (d_month_seq 108-119): its text's 1200-1211 counts
 #: months from 1900, this generator from 1990, so as written it selects
 #: no rows at any scale
 Q51_MONTH = 108
 
 
-#: the per-node cap a TPC-DS statement runs under when its join exceeds
-#: the 2GB default (what the 80 GB card holds)
-SPILL_FREE_CAP = "64GB"
+#: the statements whose join exceeds query_max_memory_per_node's 2GB
+#: default at SF10 (PERF.md 4): revoked into the spill tier, they must
+#: take at least one spill path there
+REVOKED_AT = {
+    (name, "sf10") for name in (
+        "ds_q98", "ds_q51", "ds_q51_totals", "ds_q86", "ds_sketch_global",
+    )
+}
+#: statements expected to raise ExceededMemoryLimitError under the default
+#: cap: an over-cap join of a kind the spill tier does not revoke (only
+#: inner and left equi-joins are revocable); any other raise fails the run
+OVER_CAP_RAISES: set = set()
+#: ds_sketch_item's budget per scale: store_sales streams in four or five
+#: chunks through the PARTIAL/FINAL split
+SKETCH_BUDGET = {"sf1": 128 << 20, "sf10": 1 << 30}
 
 
 #: inventory has 2.349B rows at SF10 (four int64 columns: ~75 GB, more
@@ -1133,15 +1375,64 @@ SPILL_FREE_CAP = "64GB"
 SKIPPED_AT = {("ds_q39_inv", "sf10")}
 
 
+def budgeted_sketch_item(torch, K, runner, data, sql, scale, R, np) -> dict:
+    """ds_sketch_item under SKETCH_BUDGET: store_sales streams in as many
+    chunks as ``chunk_rows_for`` and the pruned scan's ``row_bytes`` give;
+    the rows equal the chunked numpy twin (the percentile merged from the
+    chunks' summaries over the same chunk bounds, every other column the
+    resident answer), and each percentile lies within the summaries' rank
+    bound of the exact one."""
+    from trino_tpu_torch.exec import spill
+    from trino_tpu_torch.plan import nodes as P
+
+    budget = SKETCH_BUDGET[scale]
+    stack, scans = [runner.plan_sql(sql)], []
+    while stack:
+        nd = stack.pop()
+        if isinstance(nd, P.TableScan):
+            scans.append(nd)
+        stack.extend(nd.sources)
+    (scan,) = scans
+    per_row = spill.row_bytes(scan.outputs)
+    chunk_rows = spill.chunk_rows_for(budget, per_row)
+    n = runner.metadata.connector("tpcds").row_count(scan.schema, scan.table)
+    chunks = -(-n // chunk_rows)
+    want = R.ds_sketch_item(data, chunk_rows)
+    runner.session.properties["hbm_budget_bytes"] = budget
+    try:
+        res = run_query(torch, K, runner, data, "ds_sketch_item", sql, None,
+                        scale, R, want=want, warm_runs=2,
+                        label=f" under hbm_budget_bytes={budget}")
+    finally:
+        runner.session.properties.pop("hbm_budget_bytes")
+    runs = 4  # cold, two warm and one to the result page
+    if res["spill_entries"]["scan_chunks"] != chunks * runs:
+        fail(f"ds_sketch_item {scale}: {res['spill_entries']['scan_chunks']} "
+             f"chunks streamed in {runs} runs, not {runs} x {chunks} "
+             f"({n} rows of {per_row} B in chunks of {chunk_rows})")
+    item = np.asarray(data.column("store_sales", "ss_item_sk")).astype(np.int64)
+    paid = np.asarray(data.column("store_sales", "ss_net_paid")).astype(np.int64)
+    picks = np.asarray([int(row[3].scaleb(2)) for row in want])
+    errors = R.percentile_rank_errors(item, paid, picks, 0.5, chunks)
+    if errors:
+        fail(f"ds_sketch_item {scale}: {errors} percentiles outside the rank bound")
+    print(f"budgeted ds_sketch_item {scale}: {chunks} chunks of {chunk_rows} "
+          f"rows ({per_row} B a row) per run; every percentile within the "
+          "rank bound of the exact one", flush=True)
+    return dict(res, chunks=chunks, chunk_rows=chunk_rows, row_bytes=per_row)
+
+
 def tpcds_path(torch, K, QueryRunner, DS_QUERIES, SKETCH_CARD, R,
-               ExceededMemoryLimitError) -> dict:
+               ExceededMemoryLimitError, np) -> dict:
     """The TPC-DS path at SF1 and SF10: a star join (q3), a window sum
     over aggregates (q98), a FULL join under running sums and running
     maxima over decimal(38,2) (q51 and the totals of its windowed
-    relation), ROLLUP with grouping() and rank() (q86) and a RANGE offset
-    window over all of store_sales (RANGE7_SQL). A statement whose join
-    exceeds query_max_memory_per_node's default runs again under
-    SPILL_FREE_CAP, and says so."""
+    relation), ROLLUP with grouping() and rank() (q86), a RANGE offset
+    window over all of store_sales (RANGE7_SQL) and the aggregate
+    functions' statements, all under query_max_memory_per_node's 2GB
+    default: a join over it is revoked into the spill tier (REVOKED_AT
+    must take a spill path), and only OVER_CAP_RAISES may raise. Then
+    ds_sketch_item under SKETCH_BUDGET."""
     statements = [
         ("ds_q03", DS_QUERIES["q3"], R.ds_q03),
         ("ds_q98", DS_QUERIES["q98"], R.ds_q98),
@@ -1165,17 +1456,19 @@ def tpcds_path(torch, K, QueryRunner, DS_QUERIES, SKETCH_CARD, R,
             try:
                 res = run_query(torch, K, runner, data, name, sql, ref, scale, R)
             except ExceededMemoryLimitError as e:
-                # a join over the per-node cap: the port has no spill tier
-                # to revoke it to (ROADMAP Queue 1, step 12), so the
-                # statement runs again with the cap at what the card holds
-                print(f"main path {name} {scale}: under the default cap: "
-                      f"{str(e)[:160]}; again with the cap at "
-                      f"{SPILL_FREE_CAP}", flush=True)
-                runner.session.properties["query_max_memory_per_node"] = SPILL_FREE_CAP
-                res = dict(run_query(torch, K, runner, data, name, sql, ref,
-                                     scale, R), cap=SPILL_FREE_CAP)
-                runner.session.properties.pop("query_max_memory_per_node")
+                if (name, scale) not in OVER_CAP_RAISES:
+                    raise
+                print(f"main path {name} {scale}: raises under the default "
+                      f"cap, as expected: {str(e)[:160]}", flush=True)
+                results[f"{name}_{scale}"] = {"raised": str(e)[:300]}
+                continue
+            taken = spill_paths_taken(res["spill_entries"])
+            if (name, scale) in REVOKED_AT and "revocations" not in taken:
+                fail(f"{name} at {scale}: no join was revoked into the spill "
+                     f"tier: {res['spill_entries']}")
             results[f"{name}_{scale}"] = res
+        results[f"ds_sketch_item_{scale}_budget"] = budgeted_sketch_item(
+            torch, K, runner, data, SKETCH_CARD["ds_sketch_item"], scale, R, np)
         results[f"{scale}_peak_bytes"] = torch.cuda.max_memory_allocated()
         results[f"{scale}_seconds"] = time.perf_counter() - t0
         print(f"TPC-DS {scale}: peak device memory "
@@ -1193,7 +1486,8 @@ TPCH_KERNELS = (
 )
 TPCDS_KERNELS = (
     "window_peers", "range_sum", "range_minmax", "seg_searchsorted",
-    "hll_registers", "hll_estimate", "seg_arg_extreme",
+    "hll_registers", "hll_estimate", "seg_arg_extreme", "hll_merge",
+    "quant_summary", "quant_merge",
 )
 
 
@@ -1202,7 +1496,10 @@ def drive(torch, K, stage, label, kernels, fn):
     fail if one of ``kernels`` was never launched in it. Also counts the
     calls of count_true, blocked_sum and stage._presort_shared (torch
     ops, not kernels)."""
+    from trino_tpu_torch.exec import spill
+
     K.reset_launches()
+    spill.reset_entries()
     counted = (K.count_true, K.blocked_sum, stage._presort_shared)
     for f in counted:
         f.calls = 0
@@ -1239,6 +1536,7 @@ def main() -> int:
     from trino_tpu_torch.connectors.tpcds.queries import QUERIES as DS_QUERIES
     from trino_tpu_torch.connectors.tpch.queries import QUERIES
     from trino_tpu_torch.engine import QueryRunner
+    from trino_tpu_torch.exec import aggregates as A
     from trino_tpu_torch.exec import kernels as K
     from trino_tpu_torch.exec import native, shapes, stage
     from trino_tpu_torch.memory import ExceededMemoryLimitError
@@ -1298,6 +1596,8 @@ def main() -> int:
     wk = window_phases(torch, np, K, dev)
     torch.cuda.empty_cache()
     ak = agg_phases(torch, np, K, shapes, dev)
+    torch.cuda.empty_cache()
+    sk = split_phases(torch, np, K, A, shapes, dev)
     counting = count_true_phase(torch, np, K, dev)
     print("count_true " + json.dumps(counting), flush=True)
     torch.cuda.empty_cache()
@@ -1336,6 +1636,12 @@ def main() -> int:
                          "trino_tpu/exec/aggregates.py:489"),
         "seg_arg_extreme": ("trino_tpu_torch/csrc/seg_arg_extreme.cu",
                             "trino_tpu/exec/kernels.py:414"),
+        "hll_merge": ("trino_tpu_torch/csrc/hll_merge.cu",
+                      "trino_tpu/exec/aggregates.py:503"),
+        "quant_summary": ("trino_tpu_torch/csrc/quant_summary.cu",
+                          "trino_tpu/exec/aggregates.py:527"),
+        "quant_merge": ("trino_tpu_torch/csrc/quant_merge.cu",
+                        "trino_tpu/exec/aggregates.py:555"),
     }
     rows = f"{LINEITEM_ROWS / 1e6:g}M rows"
     join = f"{ORDERS_ROWS / 1e6:g}M build, {LINEITEM_ROWS / 1e6:g}M probe"
@@ -1419,6 +1725,22 @@ def main() -> int:
                     "int64 keys"),
                dict(ak["a3_stores_float"], case=f"{ss} in {DS_STORES} groups, "
                     "float64 keys")])
+    chunks5 = f"five chunks' partial rows of {items}"
+    entries["hll_merge"] = dict(
+        sk["a4_grouped"], case=f"{chunks5} x 512 registers (ds_sketch_item's FINAL)",
+        cases=[dict(sk["a4_global"], case="5 x 4096 registers into one "
+                    "(ds_sketch_global's FINAL)"),
+               dict(sk["a4_hot"], case=f"{chunks5} x 512, one group holding "
+                    "every partial row")])
+    entries["quant_summary"] = dict(
+        sk["a5_grouped"], case=f"one {DS_SALES_ROWS // 5 / 1e6:g}M-row chunk in "
+                               f"{items}, k = 256 (ds_sketch_item's PARTIAL)",
+        cases=[dict(sk["a5_global"], case=f"one {DS_SALES_ROWS // 5 / 1e6:g}M-row "
+                    "chunk, one group, k = 1024")])
+    entries["quant_merge"] = dict(
+        sk["a6_grouped"], case=f"{chunks5} x 256 points (~230M), q = 0.5 "
+                               "(ds_sketch_item's FINAL; with its two sorts)",
+        cases=[dict(sk["a6_global"], case="one group of 5 x 1024 points")])
     for name, e in entries.items():
         print(f"kernel {name} [{e['case']}]: {e['ms']:.3f} ms, plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']} ms, bound "
@@ -1437,7 +1759,7 @@ def main() -> int:
     ds_path, ds_launches, ds_calls = drive(
         torch, K, stage, "TPC-DS", TPCDS_KERNELS,
         lambda: tpcds_path(torch, K, QueryRunner, DS_QUERIES, SKETCH_CARD, R,
-                           ExceededMemoryLimitError))
+                           ExceededMemoryLimitError, np))
     print("tpcds_path " + json.dumps(ds_path, sort_keys=True), flush=True)
     launches = {k: tpch_launches[k] + ds_launches[k] for k in K.KERNELS}
     print("calls on the paths " + json.dumps(

@@ -759,3 +759,140 @@ def test_tiny_aggregate_statements_on_card(cuda):
                         assert abs(a - b) <= 1e-9 * abs(b), (name, g, w)
                     else:
                         assert type(a) is type(b) and a == b, (name, g, w)
+
+
+# ---- A4-A6: the PARTIAL/FINAL sketches ---------------------------------------
+
+
+@pytest.mark.parametrize("n,caps,m,hot", [
+    (0, 1, 512, False),          # no partial rows
+    (0, 8, 4096, False),
+    (5, 1, 4096, False),         # global: five chunks x 4096
+    (3000, 1024, 512, False),    # grouped, a few partial rows per group
+    (200_000, 50_000, 512, False),
+    (200_000, 1024, 512, True),  # one group holding every partial row
+])
+def test_hll_merge_kernel(cuda, n, caps, m, hot):
+    rng = np.random.default_rng(n + caps + m)
+    states = rng.integers(0, 50, size=(n, m)).astype(np.int8)
+    states[rng.random((n, m)) < 0.5] = 0
+    contrib = rng.random(n) >= 0.2
+    group = None
+    if caps > 1:
+        group = rng.integers(0, caps + 2, size=n).astype(np.int64)  # some past
+        if hot:
+            group[:] = 3
+    s, c = torch.from_numpy(states), torch.from_numpy(contrib)
+    g = None if group is None else torch.from_numpy(group)
+    want = K.hll_merge_plain(s, c, g, caps)
+    K.hll_merge.launches = 0
+    got = K.hll_merge(s.to(cuda), c.to(cuda), None if g is None else g.to(cuda), caps)
+    torch.cuda.synchronize()
+    assert K.hll_merge.launches == 1
+    assert torch.equal(got.cpu(), want)
+
+
+def _summary_inputs(n, n_keys, dtype, seed):
+    rng = np.random.default_rng(seed)
+    gkey = rng.integers(0, max(n_keys, 1), size=n).astype(np.int64)
+    live = rng.random(n) >= 0.05
+    eff = live & (rng.random(n) >= 0.1) & (gkey % 9 != 4)  # some: none
+    if dtype == "float64":
+        v = rng.integers(-500, 500, size=n) / 8.0
+        v[::37] = -0.0
+        v[1::101] = np.nan
+    elif dtype == "int32":
+        v = rng.integers(-1000, 1000, size=n).astype(np.int32)
+    else:
+        v = rng.integers(-(1 << 60), 1 << 60, size=n).astype(np.int64)
+    return gkey, live, eff, v
+
+
+@pytest.mark.parametrize("n,n_keys,k,dtype", [
+    (0, 1, 256, "int64"),
+    (1, 1, 1024, "float64"),
+    (5000, 0, 1024, "float64"),        # global
+    (300_000, 5000, 256, "int64"),
+    (300_000, 5000, 256, "float64"),
+    (300_000, 120, 256, "int32"),
+    (300_000, 1, 1024, "int64"),       # one group holding every row
+])
+def test_quant_summary_kernel(cuda, n, n_keys, k, dtype):
+    from trino_tpu_torch.exec import aggregates as A
+
+    gkey, live, eff, v = _summary_inputs(n, n_keys, dtype, seed=n + k)
+    vd, e = torch.from_numpy(v), torch.from_numpy(eff)
+    if n_keys == 0:
+        info, cap = None, 1
+    else:
+        cap = 1 << max(int(n_keys).bit_length(), 3)
+        info = K.group_by([(torch.from_numpy(gkey), None)],
+                          torch.from_numpy(live), cap, widths=(64,))
+    p = A._quant_sorted_perm(vd, e, info)
+    starts = torch.zeros(1, dtype=torch.int64) if info is None else info.starts
+    cnt = A._Reducer(info, cap, e).count()[: starts.shape[0]]
+    want = K.quant_summary_plain(vd, p, starts, cnt, k)
+    K.quant_summary.launches = 0
+    got = K.quant_summary(vd.to(cuda), p.to(cuda), starts.to(cuda), cnt.to(cuda), k)
+    torch.cuda.synchronize()
+    assert K.quant_summary.launches == 1
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.parametrize("rows,n_groups,k,caps", [
+    (0, 1, 256, 8),
+    (5, 1, 1024, 1),                  # global: five chunks of 1024 points
+    (400, 100, 256, 128),
+    (20_000, 4000, 256, 4096),        # five chunks of 4000 groups
+    (2_000, 1, 256, 8),               # one group holding every partial row
+])
+def test_quant_merge_kernel(cuda, rows, n_groups, k, caps):
+    rng = np.random.default_rng(rows + k)
+    pts = np.sort(rng.integers(-300, 300, size=(rows, k)) / 4.0, axis=1)
+    pts[rng.random((rows, k)) < 0.01] = -0.0
+    pts = np.sort(pts, axis=1)
+    cnt = rng.integers(0, 5000, size=rows).astype(np.float64)
+    cnt[::7] = 0.0  # a chunk without the group
+    states = np.concatenate([pts, cnt[:, None]], axis=1)
+    eff = rng.random(rows) >= 0.1
+    group = None if caps == 1 else rng.integers(0, n_groups, size=rows).astype(np.int64)
+    s, e = torch.from_numpy(states), torch.from_numpy(eff)
+    g = None if group is None else torch.from_numpy(group)
+    for q in (0.0, 0.5, 0.9, 1.0):
+        qt = torch.tensor([q], dtype=torch.float64)
+        want, whas = K.quant_merge_plain(s, e, g, caps, qt)
+        K.quant_merge.launches = 0
+        got, has = K.quant_merge(s.to(cuda), e.to(cuda),
+                                 None if g is None else g.to(cuda), caps, qt.to(cuda))
+        torch.cuda.synchronize()
+        assert K.quant_merge.launches == (1 if rows else 0)
+        assert torch.equal(has.cpu(), whas), q
+        assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64)), q
+
+
+def test_budgeted_and_revoked_statements_on_card(cuda):
+    """Under an hbm_budget_bytes that streams lineitem, and under a
+    per-node cap that revokes a join, the card gives the CPU's rows."""
+    from trino_tpu_torch.engine import QueryRunner
+    from trino_tpu_torch.exec import spill
+    from trino_tpu_torch.testing.statements import BUDGETED_STATEMENTS
+
+    saved = spill.MIN_CHUNK_ROWS
+    spill.MIN_CHUNK_ROWS = 8192
+    try:
+        for props in ({"hbm_budget_bytes": 2 << 20},
+                      {"query_max_memory_per_node": str(2 << 20)}):
+            gpu = QueryRunner.tpch("tiny")
+            cpu = QueryRunner.tpch("tiny", device="cpu")
+            for r in (gpu, cpu):
+                r.session.properties.update(props)
+            stmts = dict(BUDGETED_STATEMENTS)
+            stmts["grace"] = (
+                "select count(*) from lineitem l1, lineitem l2 "
+                "where l1.l_orderkey = l2.l_orderkey "
+                "and l1.l_linenumber = l2.l_linenumber", "grace_join", 0.0)
+            for name, (sql, _entry, _tol) in stmts.items():
+                got, want = gpu.execute(sql).rows, cpu.execute(sql).rows
+                assert got == want, (name, props)
+    finally:
+        spill.MIN_CHUNK_ROWS = saved

@@ -47,6 +47,37 @@ def test_running_a_query_loads_no_jax_or_reference_module():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+def test_spill_tier_loads_no_jax_or_reference_module():
+    """The budgeted and revoked paths (``exec/spill.py``, the split of
+    ``plan/distribute.py``) load nothing of JAX either."""
+    code = (
+        "import sys\n"
+        "from trino_tpu_torch.engine import QueryRunner\n"
+        "from trino_tpu_torch.exec import spill\n"
+        "spill.MIN_CHUNK_ROWS = 8192\n"
+        "r = QueryRunner.tpch('tiny', device='cpu')\n"
+        "r.session.properties['hbm_budget_bytes'] = 1 << 20\n"
+        "r.execute('select l_returnflag, approx_distinct(l_partkey), "
+        "approx_percentile(l_quantity, 0.5) from lineitem group by 1')\n"
+        "r = QueryRunner.tpch('tiny', device='cpu')\n"
+        "r.session.properties['query_max_memory_per_node'] = str(2 << 20)\n"
+        "r.execute('select count(*) from lineitem l1, lineitem l2 where "
+        "l1.l_orderkey = l2.l_orderkey and l1.l_linenumber = l2.l_linenumber')\n"
+        "assert r.executor.memory_revocations >= 1\n"
+        "assert spill.ENTRIES['run_chain_streamed'] >= 1\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert "trino_tpu_torch.exec.spill" in loaded
+    assert "trino_tpu_torch.plan.distribute" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

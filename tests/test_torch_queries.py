@@ -306,14 +306,18 @@ def test_hash_varchar_matches_jax(name, hashed_runners, oracle):
 
 
 def test_chunked_cross_join_raises():
-    """A cross join beyond ``cross_join_chunk_rows`` needs the host spill
-    tier (not ported): it raises, naming itself, rather than running."""
+    """A cross join beyond ``cross_join_chunk_rows`` no longer raises (the
+    name is this test's history): it chunks the larger side through the
+    host spill tier and gives the unchunked answer."""
+    from trino_tpu_torch.exec import spill
+
     runner = TorchRunner.tpch("tiny", device="cpu")
     runner.session.properties["cross_join_chunk_rows"] = 100
     sql = "select count(*) from nation cross join region"  # 125 pairs
     assert runner.execute(sql.replace("nation", "region")).rows == [(25,)]
-    with pytest.raises(NotImplementedError, match="_cross_join"):
-        runner.execute(sql)
+    spill.reset_entries()
+    assert runner.execute(sql).rows == [(125,)]
+    assert spill.ENTRIES["chunked_cross_join"] == 1
 
 
 def test_like_tables_per_dictionary_are_bounded(oracle):

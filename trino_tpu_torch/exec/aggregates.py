@@ -13,10 +13,14 @@ Work shared between the aggregates of one GROUP BY (the gather of a
 column into group order, per-group counts, contribution masks) is
 deduplicated through a per-step ``share`` cache keyed by object
 identity. Global (ungrouped) aggregates are dense masked reductions.
-The PARTIAL/FINAL split of the sketches (``approx_distinct_partial``,
-``approx_percentile_partial`` and their finals) belongs to the
-distributed and chunked tiers, which the port does not have yet: those
-names raise.
+
+The chunked tier (``exec/spill.py`` and ``max_chunk_rows``) splits an
+aggregation with ``plan/distribute.py:_split_aggregate`` into PARTIAL
+states and FINAL combines: HLL registers merged by a register max
+(``kernels.hll_merge``, A4), mergeable quantile summaries
+(``kernels.quant_summary``, A5) merged by a weighted rank pick
+(``kernels.quant_merge``, A6), exact limb sums of long decimals
+(``sum_hi32``/``sum_lo32``) and the variance moments (``var_final:``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,12 @@ VARIANCE_FNS = {
 #: to bound the per-group state at 512 bytes
 HLL_GLOBAL_BUCKETS = 4096
 HLL_GROUPED_BUCKETS = 512
+
+#: quantile-summary sizes (rank error per chunk <= count/points). Both
+#: are powers of two, so every weight count/k of the FINAL merge and
+#: every sum of them is exact in float64
+QUANT_GLOBAL_POINTS = 1024
+QUANT_GROUPED_POINTS = 256
 
 
 def _zero(like: torch.Tensor) -> torch.Tensor:
@@ -173,6 +183,8 @@ def compute_aggregate(
 
     if name in _FINAL_COMBINES:
         return _FINAL_COMBINES[name](out_type, arg, red)
+    if name.startswith("var_final:"):
+        return _var_final(name[10:], arg, red)
     if isinstance(arg, list) and len(arg) == 1:
         arg = arg[0]
     if name == "count_all":
@@ -185,18 +197,50 @@ def compute_aggregate(
             eff = eff & valid
         return _Reducer(info, capacity, eff, share).count(), None
 
-    if name == "approx_distinct":
+    if name in ("approx_distinct", "approx_distinct_partial"):
         # HLL over prepared 64-bit hash lanes (exec.stage builds them:
         # content hashes for varchar, values for numerics, which A1
-        # hashes with dev_hash64)
+        # hashes with dev_hash64); the PARTIAL keeps the registers
         (data, hashed), valid = arg
         eff = contrib if valid is None else (contrib & valid)
-        m = HLL_GLOBAL_BUCKETS if info is None else HLL_GROUPED_BUCKETS
+        if isinstance(out_type, T.SketchType):
+            m = out_type.lanes
+        else:
+            m = HLL_GLOBAL_BUCKETS if info is None else HLL_GROUPED_BUCKETS
         reg = K.hll_registers(
             data, eff, None if info is None else info.group, m,
             1 if info is None else capacity, hashed,
         )
+        if name == "approx_distinct_partial":
+            return reg, None
         return K.hll_estimate(reg), None
+
+    if name == "approx_distinct_final":
+        # register max over the member partial rows (A4), then A2
+        data, valid = arg
+        eff = contrib if valid is None else (contrib & valid)
+        reg = K.hll_merge(
+            data, eff, None if info is None else info.group,
+            1 if info is None else capacity,
+        )
+        return K.hll_estimate(reg), None
+
+    if name == "approx_percentile_partial":
+        (vd, vv), _q = arg
+        if vd.dim() == 2:
+            # two-limb decimal values flatten to float64 for the summary
+            # (the sketch is approximate by contract)
+            vd = (
+                vd[:, 0].to(torch.float64) * 4294967296.0
+                + vd[:, 1].to(torch.float64)
+            )
+        eff = contrib if vv is None else (contrib & vv)
+        k = out_type.lanes - 1
+        return _quant_summary(vd, eff, info, capacity, k, red), None
+
+    if name == "approx_percentile_final":
+        (sd, sv), (qd, _qv) = arg
+        return _quant_merge(sd, qd, contrib, sv, info, capacity, out_type)
 
     if name == "approx_percentile":
         return _percentile(arg, info, capacity, contrib, share)
@@ -319,6 +363,48 @@ def _stable_argsort(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bool:
         x = x.to(torch.int8)
     return torch.sort(x, stable=True).indices
+
+
+def _quant_sorted_perm(vd, eff, info):
+    """Permutation ordering rows (group asc, contributing first, value
+    asc): three stable sorts, as the exact percentile's."""
+    p = _stable_argsort(K.order_bits(vd))
+    p = p[_stable_argsort((~eff)[p])]
+    if info is not None:
+        p = p[_stable_argsort(info.group[p])]
+    return p
+
+
+def _quant_summary(vd, eff, info, capacity, k, red):
+    """Mergeable quantile summary: k evenly spaced order statistics per
+    group and a count lane, float64[caps, k + 1] (``quant_summary``, A5
+    on the card, over the order of ``_quant_sorted_perm``). The rank
+    error after merging S chunks is at most total/k per chunk."""
+    p = _quant_sorted_perm(vd, eff, info)
+    cnt = _Reducer(red.info, capacity, eff, red.share).count()
+    if info is None:
+        starts = torch.zeros(1, dtype=I64, device=vd.device)
+    else:
+        starts = info.starts
+    return K.quant_summary(vd, p, starts, cnt[: starts.shape[0]], k)
+
+
+def _quant_merge(states, q, contrib, valid, info, capacity, out_type):
+    """FINAL combine of quantile summaries: the member rows' points merge
+    as a weighted quantile, each point weighing count/k (``quant_merge``,
+    A6 on the card), cast to the output type."""
+    eff = contrib if valid is None else (contrib & valid)
+    if info is None:
+        caps, group = 1, None
+    else:
+        caps, group = capacity, info.group.clamp(0, capacity - 1)
+    qv = q.reshape(-1)[:1].to(torch.float64)
+    out, has = K.quant_merge(states, eff, group, caps, qv)
+    if isinstance(out_type, (T.DoubleType, T.RealType)):
+        return out.to(torch_dtype(out_type.np_dtype)), has
+    if isinstance(out_type, T.DecimalType) and out_type.is_long:
+        return _limb_encode(torch.round(out).to(I64)), has
+    return torch.round(out).to(I64).to(torch_dtype(out_type.np_dtype)), has
 
 
 def _percentile(arg, info, capacity, contrib, share):
@@ -463,9 +549,43 @@ def _decimal_avg_final(out_type, args, red: _Reducer):
     return q, nonempty
 
 
+def _var_final(kind, args, red: _Reducer):
+    """FINAL combine of the variance family from partial (n, s1, s2):
+    the state sums (K2), then the resident form's arithmetic."""
+    n = _state_sum(args[0], red).to(torch.float64)
+    s1 = _state_sum(args[1], red)
+    s2 = _state_sum(args[2], red)
+    m2 = (s2 - (s1 * s1) / n.clamp(min=1.0)).clamp(min=0.0)
+    pop = kind.endswith("_pop")
+    denom = n if pop else n - 1.0
+    var = m2 / denom.clamp(min=1.0)
+    if kind.startswith("stddev"):
+        var = _sqrt(var)
+    return var, n >= (1 if pop else 2)
+
+
+def _limb_partial_sum(which: str):
+    """PARTIAL limb sums of a decimal column: 'hi32' sums the
+    sign-extended top 32 bits, 'lo32' the low 32 bits (both exact in
+    int64 for any page; the two share the sorted gather)."""
+
+    def fn(out_type, args, red: _Reducer):
+        pair = args[0] if isinstance(args, list) else args
+        data, valid = pair
+        r = red.with_valid(valid)
+        hi, lo = r.sum_limbs(data)
+        # NULL when no row contributed, so the FINAL combine keeps SUM's
+        # all-NULL-group semantics
+        return (hi if which == "hi32" else lo), r.count() > 0
+
+    return fn
+
+
 _FINAL_COMBINES = {
     "count_final": _count_final,
     "avg_final": _avg_final,
     "decimal_sum_final": _decimal_sum_final,
     "decimal_avg_final": _decimal_avg_final,
+    "sum_hi32": _limb_partial_sum("hi32"),
+    "sum_lo32": _limb_partial_sum("lo32"),
 }

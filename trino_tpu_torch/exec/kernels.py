@@ -2,7 +2,7 @@
 ``trino_tpu/exec/kernels.py``.
 
 Everything is a whole-column computation on tensors of the executor's
-device. Seventeen functions have hand-written CUDA kernels (``csrc/``),
+device. Twenty functions have hand-written CUDA kernels (``csrc/``),
 each beside its plain torch version:
 
 - ``group_ids`` (K1): dense group ids, the inverse permutation and the
@@ -38,7 +38,14 @@ each beside its plain torch version:
 - ``hll_estimate`` (A2, ``csrc/hll.cu``): registers to estimates
   (``aggregates.py:_hll_estimate``);
 - ``seg_arg_extreme`` (A3): max_by/min_by's segmented arg-extreme
-  (``seg_arg_extreme`` with ``order_bits`` fused).
+  (``seg_arg_extreme`` with ``order_bits`` fused);
+- ``hll_merge`` (A4, ``csrc/hll_merge.cu``): the FINAL register max of
+  approx_distinct's partial states (``aggregates.py:_hll_merge``);
+- ``quant_summary`` (A5, ``csrc/quant_summary.cu``): approx_percentile's
+  PARTIAL k-point summary (``aggregates.py:_quant_summary``);
+- ``quant_merge`` (A6, ``csrc/quant_merge.cu``): the FINAL weighted rank
+  pick over merged summaries (``aggregates.py:_quant_merge``), whose
+  sorts stay ``torch.sort``.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (and adds one to its ``launches`` count)
@@ -117,6 +124,12 @@ __all__ = [
     "hll_registers_plain",
     "hll_estimate",
     "hll_estimate_plain",
+    "hll_merge",
+    "hll_merge_plain",
+    "quant_summary",
+    "quant_summary_plain",
+    "quant_merge",
+    "quant_merge_plain",
 ]
 
 I64 = torch.int64
@@ -1625,6 +1638,222 @@ def hll_estimate(reg: torch.Tensor) -> torch.Tensor:
 
 hll_estimate.launches = 0
 
+# ---- the PARTIAL/FINAL sketches ---------------------------------------------
+
+
+def hll_merge_plain(states: torch.Tensor, contrib: torch.Tensor,
+                    group: torch.Tensor | None, caps: int) -> torch.Tensor:
+    """Plain torch version of A4 (port of ``aggregates.py:_hll_merge``):
+    int8[caps, m] registers, each the max of the register over the
+    contributing partial rows of its group (a non-contributing row counts
+    as 0; ``group`` None: every row in group 0, else clipped into
+    [0, caps)). Registers are never negative, so starting from zeros
+    equals the JAX package's max."""
+    n, m = states.shape
+    live = torch.where(contrib[:, None], states, torch.zeros_like(states))
+    out = torch.zeros((caps, m), dtype=states.dtype, device=states.device)
+    if n == 0:
+        return out
+    if group is None:
+        gid = torch.zeros(n, dtype=I64, device=states.device)
+    else:
+        gid = group.to(I64).clamp(0, caps - 1)
+    return out.scatter_reduce_(
+        0, gid[:, None].expand(n, m), live, "amax", include_self=True
+    )
+
+
+def hll_merge(states: torch.Tensor, contrib: torch.Tensor,
+              group: torch.Tensor | None, caps: int) -> torch.Tensor:
+    """A4 wrapper: the FINAL register max (see ``hll_merge_plain``) over
+    partial rows in their original order; plain version on the CPU, CUDA
+    kernel (``csrc/hll_merge.cu``) on the card."""
+    if _on_cpu(states, contrib, group):
+        return hll_merge_plain(states, contrib, group, caps)
+    n, m = states.shape
+    if states.dtype != torch.int8 or m % 4:
+        raise TypeError(f"hll_merge: int8[n, m] registers, m % 4 == 0; got "
+                        f"{states.dtype}{tuple(states.shape)}")
+    states = states.contiguous()
+    contrib = contrib.contiguous()
+    _check("hll_merge.contrib", contrib, torch.bool, n)
+    if group is not None:
+        group = group.to(I64).contiguous()
+        _check("hll_merge.group", group, I64, n)
+    out = torch.zeros((caps, m), dtype=torch.int8, device=states.device)
+    native.call("hll_merge", "hll_merge_launch", states, contrib, group, n,
+                m, caps, out)
+    hll_merge.launches += 1
+    return out
+
+
+hll_merge.launches = 0
+
+
+def _f64(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.float64, device=like.device)
+
+
+def quant_summary_plain(vd: torch.Tensor, p: torch.Tensor, starts: torch.Tensor,
+                        cnt: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain torch version of A5 (port of ``aggregates.py:_quant_summary``
+    after its sort): float64[caps, k + 1], point i of group g the value at
+    sorted position ``starts[g] + off`` of ``p``, with ``off =
+    clip(round((i + 0.5) / k * cnt - 0.5), 0, max(cnt - 1, 0))`` rounded
+    half to even, and the count as lane k. With no rows every point is
+    0.0 (the JAX package cannot trace that case)."""
+    n = vd.shape[0]
+    caps = starts.shape[0]
+    dev = vd.device
+    c = cnt.to(torch.float64)
+    if n == 0:
+        pts = torch.zeros((caps, k), dtype=torch.float64, device=dev)
+    else:
+        i = torch.arange(k, dtype=torch.float64, device=dev)
+        # tensor divisions: k is a power of two, so (i + 0.5) / k is
+        # exact either way, but the form stays the JAX package's
+        frac = (i + 0.5) / _f64(float(k), i)
+        offs = torch.round(frac[None, :] * c[:, None] - 0.5)
+        offs = torch.minimum(
+            offs.clamp(min=0.0), (cnt - 1).clamp(min=0).to(torch.float64)[:, None]
+        ).to(I64)
+        at = (starts[:, None] + offs).clamp(0, n - 1)
+        pts = vd[p[at]].to(torch.float64)
+    return torch.cat([pts, c[:, None]], dim=1)
+
+
+def quant_summary(vd: torch.Tensor, p: torch.Tensor, starts: torch.Tensor,
+                  cnt: torch.Tensor, k: int) -> torch.Tensor:
+    """A5 wrapper: the k-point summary of every group (see
+    ``quant_summary_plain``), the offsets, the two-level gather and the
+    count lane in one pass; plain version on the CPU, CUDA kernel
+    (``csrc/quant_summary.cu``) on the card."""
+    if _on_cpu(vd, p, starts, cnt):
+        return quant_summary_plain(vd, p, starts, cnt, k)
+    if vd.dim() != 1:
+        raise TypeError("quant_summary: a one-lane value column")
+    if vd.dtype not in (I64, torch.float64):
+        vd = vd.to(torch.float64 if vd.dtype.is_floating_point else I64)
+    vd = vd.contiguous()
+    n = vd.shape[0]
+    caps = starts.shape[0]
+    _check("quant_summary.p", p, I64, n)
+    starts = starts.contiguous()
+    cnt = cnt.to(I64).contiguous()
+    _check("quant_summary.starts", starts, I64, caps)
+    _check("quant_summary.cnt", cnt, I64, caps)
+    out = torch.empty((caps, k + 1), dtype=torch.float64, device=vd.device)
+    native.call("quant_summary", "quant_summary_launch", vd,
+                int(vd.dtype == torch.float64), p, n, starts, cnt, caps, k,
+                out)
+    quant_summary.launches += 1
+    return out
+
+
+quant_summary.launches = 0
+
+
+def _quant_order(states: torch.Tensor, group: torch.Tensor | None):
+    """The merge order of the summaries' n * k points: two stable sorts,
+    by value (``order_bits``) then by group, as the JAX package's."""
+    n, k1 = states.shape
+    k = k1 - 1
+    vbits = order_bits(states[:, :k]).reshape(-1)
+    p = torch.sort(vbits, stable=True).indices
+    del vbits
+    if group is not None:
+        p = p[torch.sort(group[p // k], stable=True).indices]
+    return p
+
+
+def quant_merge_plain(states: torch.Tensor, eff: torch.Tensor,
+                      group: torch.Tensor | None, caps: int,
+                      q: torch.Tensor):
+    """Plain torch version of A6 (port of ``aggregates.py:_quant_merge``):
+    (float64[caps] value, bool[caps] has). Each point of a partial row
+    weighs ``count / k`` when the row contributes; over the points sorted
+    by (group, value), a group answers the first point whose running
+    weight within the group reaches ``q * total - 1e-9`` with a positive
+    weight (the JAX form: a global cumsum minus each group's base).
+    ``group`` is clipped into [0, caps) (None: one group); ``q`` a
+    one-element float64 tensor."""
+    n, k1 = states.shape
+    k = k1 - 1
+    dev = states.device
+    if n == 0 or k == 0:
+        return (torch.zeros(caps, dtype=torch.float64, device=dev),
+                torch.zeros(caps, dtype=torch.bool, device=dev))
+    nk = n * k
+    cnt = states[:, k]
+    w = torch.where(eff & (cnt > 0), cnt / _f64(float(k), cnt),
+                    torch.zeros_like(cnt))
+    vals = states[:, :k].reshape(-1)
+    wts = w.repeat_interleave(k)
+    if group is None:
+        gid_f = torch.zeros(nk, dtype=I64, device=dev)
+    else:
+        gid_f = group.to(I64).repeat_interleave(k)
+    p = _quant_order(states, None if group is None else group.to(I64))
+    gs = gid_f[p]
+    ws = wts[p]
+    cum = torch.cumsum(ws, 0)
+    starts = torch.searchsorted(gs, torch.arange(caps, dtype=I64, device=dev))
+    base = torch.where(starts > 0, cum[(starts - 1).clamp(0, nk - 1)],
+                       torch.zeros_like(cum[:1]))
+    total = torch.zeros(caps, dtype=torch.float64, device=dev).index_add_(
+        0, gs, ws)
+    adj = cum - base[gs]
+    target = q.reshape(-1)[0].to(torch.float64) * total
+    reached = adj >= target[gs] - 1e-9
+    idx = torch.arange(nk, dtype=I64, device=dev)
+    cand = torch.where(reached & (ws > 0), idx, torch.full_like(idx, nk))
+    first = torch.full((caps,), nk, dtype=I64, device=dev).scatter_reduce_(
+        0, gs, cand, "amin")
+    at = first.clamp(0, nk - 1)
+    return vals[p[at]], total > 0
+
+
+def quant_merge(states: torch.Tensor, eff: torch.Tensor,
+                group: torch.Tensor | None, caps: int, q: torch.Tensor):
+    """A6 wrapper: the FINAL weighted rank pick (see
+    ``quant_merge_plain``). The sorts stay ``torch.sort``; the kernel
+    (``csrc/quant_merge.cu``, one warp per group) scans each group's run
+    of the sorted points for its total and its pick. Plain version on the
+    CPU."""
+    if _on_cpu(states, eff, group, q):
+        return quant_merge_plain(states, eff, group, caps, q)
+    n, k1 = states.shape
+    k = k1 - 1
+    dev = states.device
+    if states.dtype != torch.float64:
+        raise TypeError(f"quant_merge: float64 summaries, got {states.dtype}")
+    out = torch.zeros(caps, dtype=torch.float64, device=dev)
+    has = torch.zeros(caps, dtype=torch.bool, device=dev)
+    if n == 0 or k == 0:
+        return out, has
+    states = states.contiguous()
+    eff = eff.contiguous()
+    _check("quant_merge.eff", eff, torch.bool, n)
+    if group is not None:
+        group = group.to(I64).contiguous()
+        _check("quant_merge.group", group, I64, n)
+    p = _quant_order(states, group)
+    # each group's run of the sorted points: k points per partial row
+    if group is None:
+        seg_hi = torch.full((1,), n * k, dtype=I64, device=dev)
+    else:
+        rows = torch.bincount(group, minlength=caps)[:caps]
+        seg_hi = torch.cumsum(rows, 0) * k
+    seg_lo = torch.cat([seg_hi.new_zeros(1), seg_hi[:-1]])
+    q = q.reshape(-1)[:1].to(torch.float64).contiguous()
+    native.call("quant_merge", "quant_merge_launch", states, k, n, eff, p,
+                seg_lo, seg_hi, caps, q, out, has)
+    quant_merge.launches += 1
+    return out, has
+
+
+quant_merge.launches = 0
+
 #: the wrappers whose kernels the main path must launch
 KERNELS = {
     "group_ids": group_ids,
@@ -1644,6 +1873,9 @@ KERNELS = {
     "hll_registers": hll_registers,
     "hll_estimate": hll_estimate,
     "seg_arg_extreme": seg_arg_extreme,
+    "hll_merge": hll_merge,
+    "quant_summary": quant_summary,
+    "quant_merge": quant_merge,
 }
 
 

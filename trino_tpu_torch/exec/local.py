@@ -7,7 +7,8 @@ fan-out, live-row counts), as in the JAX package. Implemented nodes:
 TableScan (VARCHAR dictionary- or hash-coded), the fused
 Filter/Project/Aggregate/Sort/TopN/Limit chains, inner, LEFT, RIGHT and
 FULL equi-Join (dynamic filtering for inner joins, residual filters),
-the cross join,
+the cross join (chunked through host runs beyond
+``cross_join_chunk_rows``),
 SemiJoin (IN, NOT IN, EXISTS and NOT EXISTS, with and without a
 correlated residual filter, IN with three-valued NULL semantics),
 Window (``exec/window.py``), GroupId (grouping sets), Union (INTERSECT
@@ -16,9 +17,21 @@ Output. Every other node type raises NotImplementedError naming it.
 PyTorch runs eagerly, so there is no jit cache and no program catalog;
 the learned aggregate capacities and filter selectivities are kept per
 executor as in the JAX package.
+
+Memory-bounded execution (``exec/spill.py``): under ``hbm_budget_bytes``
+a chain over a large scan streams in chunks with a per-chunk PARTIAL and
+one FINAL, an inner or left join whose sides exceed the budget becomes a
+streamed probe join or a grace-hash join, a semi join over a large
+source streams, and a cross join chunks under the budget. With no
+budget, an inner or left join whose working set would breach
+``query_max_memory_per_node`` is revoked into the same tier with the cap
+standing in as the budget. ``max_chunk_rows`` chunks a SINGLE grouped
+aggregation over wider pages into PARTIALs and one FINAL.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 import numpy as np
@@ -100,6 +113,53 @@ class LocalExecutor:
             limit_provider=self._per_node_cap
         )
         self.memory_ctx = self.memory_pool.query_context("adhoc")
+        #: joins revoked into the spill tier by memory pressure
+        self.memory_revocations = 0
+        #: revocation budget in force while a revoked subtree runs (makes
+        #: hbm_budget() nonzero so the spill paths chunk under it)
+        self._revoked_budget = 0
+        #: grace-join counters (exec/spill.py writes these)
+        self.grace_recursion_hwm = 0
+        self.grace_hot_pairs = 0
+        #: (catalog, schema, table, column) -> (StringDictionary, int32
+        #: codes): a streamed scan's VARCHAR column, encoded once
+        self._chunk_codes: dict = {}
+        self._chunk_codes_lock = threading.Lock()
+
+    def hbm_budget(self) -> int:
+        """Device-memory budget in bytes (session ``hbm_budget_bytes``;
+        0 = resident mode). While a memory-revoked subtree runs, the
+        per-node cap stands in as the budget so the whole subtree
+        degrades into the spill tier."""
+        from trino_tpu_torch import session_properties as SP
+
+        budget = int(SP.get(self.session, "hbm_budget_bytes"))
+        return budget or self._revoked_budget
+
+    @property
+    def tracked_bytes_hwm(self) -> int:
+        """Largest tracked device working set this executor reserved (the
+        memory pool's lifetime high-water mark; the budget-tier tests
+        assert it stays within hbm_budget_bytes)."""
+        return self.memory_pool.peak_bytes
+
+    def chunk_codes(self, node: P.TableScan, cname: str):
+        """(StringDictionary, int32 codes) of a VARCHAR column of the
+        whole table, computed once per executor: each streamed chunk
+        slices its codes, so no chunk sorts strings (the rows are those
+        of per-chunk dictionaries)."""
+        key = (node.catalog, node.schema, node.table, cname)
+        with self._chunk_codes_lock:
+            hit = self._chunk_codes.get(key)
+            if hit is None:
+                raw = self.metadata.connector(node.catalog).scan(
+                    node.schema, node.table, [cname]
+                )[cname]
+                if isinstance(raw, tuple):
+                    raw = raw[0]
+                hit = StringDictionary.from_strings(raw)
+                self._chunk_codes[key] = hit
+            return hit
 
     def _per_node_cap(self) -> int:
         """query_max_memory_per_node in bytes (0 = unlimited)."""
@@ -116,6 +176,15 @@ class LocalExecutor:
             while isinstance(cur, stage.FUSABLE):
                 chain.append(cur)
                 cur = cur.sources[0]
+            if isinstance(cur, P.TableScan):
+                budget = self.hbm_budget()
+                if budget:
+                    from trino_tpu_torch.exec import spill
+
+                    if spill.scan_bytes(self.metadata, cur) > budget // 4:
+                        return spill.run_chain_streamed(
+                            self, list(reversed(chain)), cur
+                        )
             base = self.execute(cur)
             return self._run_chain(list(reversed(chain)), base)
         m = getattr(self, f"_{type(node).__name__}", None)
@@ -174,6 +243,34 @@ class LocalExecutor:
                 filtered = self._run_chain(chain[:1], page)
                 self._learned[skey] = filtered.num_rows() / page.capacity
                 return self._run_chain(chain[1:], filtered)
+        from trino_tpu_torch import session_properties as SP
+
+        chunk_rows = int(SP.get(self.session, "max_chunk_rows"))
+        if chunk_rows > 0 and page.capacity > chunk_rows:
+            # only SINGLE grouped aggregations chunk: the FINAL combine
+            # over the partial states holds O(distinct keys)
+            agg_i = next(
+                (
+                    i for i, n in enumerate(chain)
+                    if isinstance(n, P.Aggregate)
+                    and n.group_keys and n.step == "SINGLE"
+                ),
+                None,
+            )
+            if (
+                agg_i is not None
+                and not any(
+                    c.distinct for c in chain[agg_i].aggregates.values()
+                )
+                # every node before it must be row-local: a Limit, Sort
+                # or TopN there is global, not per chunk
+                and all(
+                    isinstance(n, (P.Filter, P.Project))
+                    for n in chain[:agg_i]
+                )
+                and _splittable(chain[agg_i])
+            ):
+                return self._run_chain_chunked(chain, page, agg_i, chunk_rows)
         caps_key = (
             "caps", tuple(self._node_key(n) for n in chain), page.capacity
         )
@@ -208,6 +305,25 @@ class LocalExecutor:
                 }
                 continue
             return self._finalize_chain(chain, env, mask, n_live, out_layout)
+
+    def _run_chain_chunked(
+        self, chain: list[P.PlanNode], page: Page, agg_i: int, chunk_rows: int
+    ) -> Page:
+        """Partial-aggregate fixed-size row chunks, concatenate the
+        partial states, FINAL-combine (grace aggregation)."""
+        from trino_tpu_torch.plan.distribute import _split_aggregate
+
+        partial, final = _split_aggregate(chain[agg_i])
+        pre = chain[:agg_i]
+        post = chain[agg_i + 1:]
+        partials = []
+        for lo in range(0, page.capacity, chunk_rows):
+            hi = min(lo + chunk_rows, page.capacity)
+            partials.append(
+                self._run_chain(pre + [partial], _slice_page(page, lo, hi))
+            )
+        combined = _concat_pages(partials)
+        return self._run_chain([final] + post, combined)
 
     def _dispatch_chain(self, chain, page: Page, caps):
         in_layout = stage.ChainLayout(
@@ -403,25 +519,134 @@ class LocalExecutor:
                 f"_Join: {node.kind} join"
                 + ("" if node.criteria else " without equi-criteria")
             )
+        budget = self.hbm_budget()
+        revocable = node.kind in ("inner", "left") and bool(node.criteria)
+        if budget and revocable:
+            plan = self._plan_budget_join(node, budget)
+            if plan is not None:
+                return plan
+        if not budget and revocable:
+            plan = self._maybe_revoke_join(node)
+            if plan is not None:
+                return plan
         left = self._compact(self.execute(node.left))
         right = self._compact(self.execute(node.right))
         if node.kind == "cross":
             return self._cross_join(node, left, right)
-        return self._equi_join(node, left, right)
+        try:
+            return self._equi_join(node, left, right)
+        except memory.ExceededMemoryLimitError:
+            # reactive revocation: the resident working set (padded
+            # capacities) breached the per-node cap although the
+            # live-row estimate fit. The failed reserve recorded
+            # nothing, so the join re-plans through the spill tier.
+            if budget or not revocable:
+                raise
+            plan = self._maybe_revoke_join(node, force=True)
+            if plan is None:
+                raise
+            return plan
+
+    def _plan_budget_join(self, node: P.Join, budget: int) -> Page | None:
+        """Memory-scaled join strategies: a streamed probe against a
+        resident build when only the probe exceeds the budget's slab,
+        grace-hash partitioning when the build does. None when the
+        resident path fits."""
+        from trino_tpu_torch.exec import spill
+
+        l_bytes = spill.est_output_bytes(self, node.left)
+        r_bytes = spill.est_output_bytes(self, node.right)
+        slab = budget // 4
+        if l_bytes <= slab and r_bytes <= slab:
+            return None
+        probe_chain, probe_scan = self._streamable(node.left)
+        if l_bytes > slab and r_bytes <= slab and probe_scan is not None:
+            build = self._compact(self.execute(node.right))
+            return spill.streamed_probe_join(
+                self, node, probe_chain, probe_scan, build
+            )
+        # grace-hash handles inner AND left joins: each partition pair
+        # covers its key range alone, so an unmatched probe row is
+        # emitted exactly once
+        return spill.grace_join(self, node)
+
+    def _maybe_revoke_join(self, node: P.Join, force: bool = False) -> Page | None:
+        """Memory revocation: with no session budget, a hash join whose
+        estimated resident working set would breach
+        query_max_memory_per_node switches into the spill tier — the cap
+        standing in as the budget for the whole subtree — instead of
+        failing at reservation. ``force`` skips the estimate (the
+        reactive path, after a resident reserve raised). Only when even
+        the revoked path cannot fit does the pool raise."""
+        cap = self.memory_pool.limit_bytes()
+        if not cap:
+            return None
+        from trino_tpu_torch.exec import spill
+
+        est = (
+            spill.est_output_bytes(self, node.left)
+            + spill.est_output_bytes(self, node.right)
+            + spill.est_output_bytes(self, node)
+        )
+        if not force and est <= max(cap - self.memory_pool.reserved_bytes, 0):
+            return None
+        prev = self._revoked_budget
+        self._revoked_budget = cap
+        try:
+            plan = self._plan_budget_join(node, cap)
+            if plan is not None:
+                self.memory_revocations += 1
+                spill.ENTRIES["revocations"] += 1
+            return plan
+        finally:
+            self._revoked_budget = prev
+
+    @staticmethod
+    def _streamable(node: P.PlanNode):
+        """(chain, scan) when the subtree is a chain of row-local
+        operators over a TableScan — the shape the chunked scan can
+        stream; (None, None) otherwise. Aggregates reduce cardinality
+        and stream on their own through execute(); a Limit, TopN or Sort
+        is global, and per-chunk copies concatenated would drop its
+        truncation."""
+        chain: list[P.PlanNode] = []
+        cur = node
+        while isinstance(cur, stage.FUSABLE):
+            chain.append(cur)
+            cur = cur.sources[0]
+        if isinstance(cur, P.TableScan):
+            if any(
+                isinstance(n, (P.Aggregate, P.Limit, P.TopN, P.Sort))
+                for n in chain
+            ):
+                return None, None
+            return list(reversed(chain)), cur
+        return None, None
 
     def _cross_join(self, node: P.Join, left: Page, right: Page) -> Page:
         """Every (left row, right row) pair of two compacted pages, at a
         bucketed capacity: output position j pairs left row j // n_r with
-        right row j % n_r."""
+        right row j % n_r. Beyond ``cross_join_chunk_rows`` output rows
+        (or the budget's slab) the larger side is chunked and the pieces
+        spill to host runs."""
         from trino_tpu_torch import session_properties as SP
 
         n_l, n_r = left.num_rows(), right.num_rows()
         limit = int(SP.get(self.session, "cross_join_chunk_rows"))
-        if n_l * n_r > limit and max(n_l, n_r) > 1:
-            raise NotImplementedError(
-                "_cross_join: the chunked cross join beyond "
-                "cross_join_chunk_rows (needs the host spill tier)"
+        budget = self.hbm_budget()
+        if budget:
+            from trino_tpu_torch.exec import spill
+
+            limit = min(
+                limit,
+                max(
+                    (budget // spill.CHUNK_BUDGET_FRACTION)
+                    // spill.row_bytes(node.outputs),
+                    1 << 16,
+                ),
             )
+        if n_l * n_r > limit and max(n_l, n_r) > 1:
+            return self._cross_join_chunked(node, left, right, limit)
         cap = shapes.bucket(max(n_l * n_r, 1))
         j = torch.arange(cap, dtype=I64, device=self.device)
         li = (j // max(n_r, 1)).clamp(0, max(left.capacity - 1, 0))
@@ -436,6 +661,38 @@ class LocalExecutor:
                     c.dictionary, c.hash_pool,
                 ))
         return Page(names, cols, j < n_l * n_r, known_rows=n_l * n_r, packed=True)
+
+    def _cross_join_chunked(self, node: P.Join, left: Page, right: Page,
+                            limit: int) -> Page:
+        """The chunked cross join: the LARGER side in row ranges (chunking
+        the left against a right that alone exceeds the limit would
+        recurse with one-row chunks forever), each piece's pairs spilled
+        to a host run, the runs concatenated once."""
+        from trino_tpu_torch.exec import spill
+
+        spill.ENTRIES["chunked_cross_join"] += 1
+        n_l, n_r = left.num_rows(), right.num_rows()
+        chunk_left = n_l >= n_r
+        n_big = n_l if chunk_left else n_r
+        n_other = n_r if chunk_left else n_l
+        rows_per = max(limit // max(n_other, 1), 1)
+        runs = []
+        for lo in range(0, n_big, rows_per):
+            hi = min(lo + rows_per, n_big)
+            if chunk_left:
+                out = self._cross_join(
+                    node, self._compact(_slice_page(left, lo, hi)), right,
+                )
+            else:
+                out = self._cross_join(
+                    node, left, self._compact(_slice_page(right, lo, hi)),
+                )
+            run = spill.page_to_host(self._compact(out))
+            if run.n_rows:
+                runs.append(run)
+        if not runs:
+            runs = [spill._empty_run(node.outputs)]
+        return spill.host_concat_to_page(self, runs)
 
     def _unify_join_dicts(self, probe: Page, build: Page, criteria):
         """Remap VARCHAR key pairs onto shared dictionaries. Hash-coded
@@ -784,12 +1041,21 @@ class LocalExecutor:
     # ---- semi join -------------------------------------------------------
 
     def _SemiJoin(self, node: P.SemiJoin) -> Page:
-        from trino_tpu_torch import session_properties as SP
+        budget = self.hbm_budget()
+        if budget:
+            from trino_tpu_torch.exec import spill
 
-        if int(SP.get(self.session, "hbm_budget_bytes")):
-            raise NotImplementedError(
-                "_SemiJoin: the streamed semi join under hbm_budget_bytes"
-            )
+            src_chain, src_scan = self._streamable(node.source)
+            if (
+                src_scan is not None
+                and spill.est_output_bytes(self, node.source) > budget // 4
+                and spill.est_output_bytes(self, node.filter_source)
+                <= budget // 4
+            ):
+                filt = self._compact(self.execute(node.filter_source))
+                return spill.streamed_semi_join(
+                    self, node, src_chain, src_scan, filt
+                )
         source = self.execute(node.source)
         filt = self._compact(self.execute(node.filter_source))
         return self._semi_join_pages(node, source, filt)
@@ -965,6 +1231,47 @@ def _concat_sections(parts):
         for d, v in parts
     ]
     return data, torch.cat(valids)
+
+
+def _splittable(agg: P.Aggregate) -> bool:
+    """Whether the aggregation has a PARTIAL/FINAL split, probed before
+    any chunk runs so that no computed partial is thrown away."""
+    from trino_tpu_torch.plan.distribute import _split_aggregate
+
+    try:
+        _split_aggregate(agg)
+        return True
+    except NotImplementedError:
+        return False
+
+
+def _slice_page(page: Page, lo: int, hi: int) -> Page:
+    """Row-range view of a page (tensor slices are views)."""
+    cols = [
+        Column(
+            c.type, c.data[lo:hi],
+            None if c.valid is None else c.valid[lo:hi],
+            c.dictionary, c.hash_pool,
+        )
+        for c in page.columns
+    ]
+    return Page(list(page.names), cols, page.mask[lo:hi])
+
+
+def _concat_pages(pages: list[Page]) -> Page:
+    """Concatenate same-layout pages (chunk partials share column types
+    and dictionaries by construction)."""
+    if len(pages) == 1:
+        return pages[0]
+    first = pages[0]
+    cols = []
+    for i, c in enumerate(first.columns):
+        data, valid = _concat_sections(
+            [(p.columns[i].data, p.columns[i].valid) for p in pages]
+        )
+        cols.append(Column(c.type, data, valid, c.dictionary, c.hash_pool))
+    mask = torch.cat([p.mask for p in pages])
+    return Page(list(first.names), cols, mask)
 
 
 def _page_dev_bytes(page: Page) -> int:

@@ -44,6 +44,9 @@ SOURCES = {
     "seg_searchsorted": "seg_searchsorted.cu",
     "hll": "hll.cu",
     "seg_arg_extreme": "seg_arg_extreme.cu",
+    "hll_merge": "hll_merge.cu",
+    "quant_summary": "quant_summary.cu",
+    "quant_merge": "quant_merge.cu",
 }
 
 NVCC_FLAGS = [

@@ -14,7 +14,9 @@ with an 8x larger table when one trips (the FlatHash rehash analog).
 DISTINCT aggregates dedupe through a second ``group_by``.
 ``approx_distinct`` hashes values, not codes: a dictionary or pool
 column's lane gathers a content-hash table kept with its dictionary
-(pool).
+(pool). A PARTIAL aggregation's sketch states (``T.SketchType``: int8
+HLL registers or a float64 quantile summary per group) ride the output
+page as ``[capacity, lanes]`` columns, as two-limb decimals do.
 """
 
 from __future__ import annotations
@@ -318,7 +320,7 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
                     shifted, d_arg, contrib, in_cap,
                     tuple(width_list) + (dwidth,),
                 )
-            if call.name == "approx_distinct":
+            if call.name in _HLL_NAMES:
                 arg = _hll_lane(arg, hll_tables.get(sym), call.args[0].type)
             prepared.append((sym, call, arg, contrib))
         if info is not None:
@@ -337,6 +339,11 @@ def _aggregate_step(nd: P.Aggregate, layout: ChainLayout, capacity: int, pos: in
     return step, out_layout
 
 
+#: the aggregates whose argument becomes an HLL hash lane: the resident
+#: form and the PARTIAL of the split (its FINAL reads register states)
+_HLL_NAMES = ("approx_distinct", "approx_distinct_partial")
+
+
 def _hll_tables(agg_meta, layout: ChainLayout) -> dict:
     """Per approx_distinct aggregate over a VARCHAR: ("code", table) for
     a dictionary column, ("id", table) for a hash-coded column whose pool
@@ -345,7 +352,7 @@ def _hll_tables(agg_meta, layout: ChainLayout) -> dict:
     (pool) so warm runs reuse it."""
     tables = {}
     for sym, call, arg_c, _f in agg_meta:
-        if call.name != "approx_distinct" or not arg_c:
+        if call.name not in _HLL_NAMES or not arg_c:
             continue
         d = arg_c[0].dictionary
         kind = "code"
@@ -384,10 +391,14 @@ def _hll_lane(arg, table, arg_type):
 
 
 #: aggregates that read their arguments in original row order (or sort
-#: them their own way): nothing of theirs is gathered in advance
+#: them their own way): nothing of theirs is gathered in advance. The
+#: sketches' PARTIAL and FINAL forms are among them (a FINAL reads its
+#: [n, lanes] states in row order)
 _ROW_ORDER = {
     "approx_distinct", "approx_percentile", "max_by", "min_by",
-    "any_value", "arbitrary",
+    "any_value", "arbitrary", "approx_distinct_partial",
+    "approx_distinct_final", "approx_percentile_partial",
+    "approx_percentile_final",
 }
 
 

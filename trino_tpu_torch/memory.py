@@ -177,6 +177,12 @@ class MemoryPool:
         #: the limit, before the reservation is failed
         self._revokers: list = []
 
+    def reset_peak(self) -> None:
+        """Start the high-water mark again from what is reserved now (a
+        measurement of one phase on a long-lived executor)."""
+        with self._lock:
+            self.peak_bytes = self.reserved_bytes
+
     def limit_bytes(self) -> int:
         if self._limit_provider is None:
             return 0

@@ -10,7 +10,9 @@ computed with numpy alone. The aggregate functions' statements
 ``ds_q17_store``, ``ds_q39_inv``) build their HLL registers with
 ``np.maximum.at``, their percentiles and ``*_by`` rows with stable
 sorts, and their variances from exact integer sums with the engine's
-float64 formula.
+float64 formula. ``chunked_percentile`` is the exact twin of the chunked
+tier's approx_percentile (per-chunk quantile summaries and their
+weighted merge) over the same contiguous chunk bounds.
 
 An independent check of the engine's answers: the same generated data
 (``connectors.tpch.generator.TpchData``: dates as epoch days, decimals
@@ -44,6 +46,7 @@ __all__ = [
     "rows_match", "ds_q03", "ds_q98", "ds_q86", "ds_q51", "ds_q51_totals",
     "ds_range7", "q51_sql", "q51_totals_sql", "RANGE7_SQL",
     "ds_sketch_item", "ds_sketch_global", "ds_q17_store", "ds_q39_inv",
+    "quantile_summary", "chunked_percentile", "percentile_rank_errors",
 ]
 
 #: a full outer join with unmatched rows on both sides (no TPC-H query
@@ -1023,12 +1026,19 @@ def _percentile_at(starts, counts, q: float) -> np.ndarray:
     return starts + np.clip(offs, 0, np.maximum(counts - 1, 0))
 
 
-def ds_sketch_item(data) -> list[tuple]:
+def ds_sketch_item(data, chunk_rows: int | None = None) -> list[tuple]:
     """``statements.SKETCH_CARD["ds_sketch_item"]``: per store_sales item,
     count(*), approx_distinct of the customer, the median net paid,
     max_by / min_by of the ticket by net paid (ties to the first row in
     scan order), arbitrary store (the first row in scan order), bool_or
-    of quantity > 95, stddev_samp and var_pop of quantity."""
+    of quantity > 95, stddev_samp and var_pop of quantity.
+
+    With ``chunk_rows``, the statement as the chunked tier runs it when
+    store_sales streams in row ranges of that many rows: the median is
+    the merge of the chunks' quantile summaries
+    (``chunked_percentile``); every other column is the same (register
+    max, the integer moments and the first rows do not depend on the
+    chunks)."""
     item = _ds(data, "store_sales", "ss_item_sk").astype(np.int64)
     cust = _ds(data, "store_sales", "ss_customer_sk").astype(np.int64)
     paid = _ds(data, "store_sales", "ss_net_paid").astype(np.int64)
@@ -1043,7 +1053,11 @@ def ds_sketch_item(data) -> list[tuple]:
     est = _hll_estimates(group, len(starts), _splitmix64(cust), 512)
     by_paid = np.lexsort((paid, item))  # stable: ties keep scan order
     by_paid_desc = np.lexsort((-paid, item))
-    median = paid[by_paid[_percentile_at(starts, counts, 0.5)]]
+    if chunk_rows is None:
+        median = paid[by_paid[_percentile_at(starts, counts, 0.5)]]
+    else:
+        _items, picks = chunked_percentile(item, paid, chunk_rows, 0.5)
+        median = np.round(picks).astype(np.int64)
     big = np.logical_or.reduceat((qty > 95)[scan], starts) if len(starts) else []
     s1 = _group_sums(group, qty, len(starts))
     s2 = _group_sums(group, qty * qty, len(starts))
@@ -1055,6 +1069,71 @@ def ds_sketch_item(data) -> list[tuple]:
          _variance(int(s1[g]), int(s2[g]), int(c), True, False))
         for g, (s, c) in enumerate(zip(starts, counts))
     ]
+
+
+def quantile_summary(keys: np.ndarray, vals: np.ndarray, k: int):
+    """The engine's PARTIAL quantile summary of one chunk, grouped by
+    ``keys`` (every row contributing): (group keys ascending, float64
+    points [groups, k], counts). Point i of a group of c rows is its
+    sorted value at clip(round((i + 0.5) / k * c - 0.5), 0, c - 1),
+    rounded half to even; equal values keep scan order."""
+    order = np.lexsort((vals, keys))
+    ks, vs = keys[order], vals[order]
+    starts, counts = _runs(ks)
+    i = np.arange(k, dtype=np.float64)
+    c = counts.astype(np.float64)
+    offs = np.clip(
+        np.round((i[None, :] + 0.5) / k * c[:, None] - 0.5),
+        0, np.maximum(c - 1, 0)[:, None],
+    ).astype(np.int64)
+    return ks[starts], vs[starts[:, None] + offs].astype(np.float64), counts
+
+
+def chunked_percentile(keys: np.ndarray, vals: np.ndarray, chunk_rows: int,
+                       q: float, k: int = 256):
+    """The engine's FINAL merge of per-chunk quantile summaries over the
+    contiguous row ranges [j * chunk_rows, (j + 1) * chunk_rows): each
+    point weighs its chunk's group count / k; over a group's points in
+    value order (equal values in chunk order, then point order) the pick
+    is the first point whose running weight reaches q * total - 1e-9.
+    Returns (group keys ascending, float64 picks)."""
+    parts = [
+        quantile_summary(keys[lo:lo + chunk_rows], vals[lo:lo + chunk_rows], k)
+        for lo in range(0, len(keys), chunk_rows)
+    ]
+    groups = np.unique(np.concatenate([p[0] for p in parts]))
+    n_chunks = len(parts)
+    pts = np.full((len(groups), n_chunks * k), np.inf)
+    wts = np.zeros((len(groups), n_chunks))
+    for j, (gk, p, c) in enumerate(parts):
+        at = np.searchsorted(groups, gk)
+        pts[at, j * k:(j + 1) * k] = p
+        wts[at, j] = c / k
+    del parts
+    order = np.argsort(pts, axis=1, kind="stable")
+    ws = np.take_along_axis(wts, order // k, axis=1)
+    vs = np.take_along_axis(pts, order, axis=1)
+    del order, pts
+    cum = np.cumsum(ws, axis=1)  # exact: dyadic weights
+    target = q * cum[:, -1] - 1e-9
+    first = np.argmax((cum >= target[:, None]) & (ws > 0), axis=1)
+    return groups, vs[np.arange(len(groups)), first]
+
+
+def percentile_rank_errors(keys: np.ndarray, vals: np.ndarray, picks,
+                           q: float, n_chunks: int, k: int = 256) -> int:
+    """How many groups' picks lie outside the summaries' rank bound of
+    the exact percentile: sorted ranks round(q * (c - 1)) +- (n_chunks *
+    c // k + 1), as tests/test_sketches.py bounds the JAX package's."""
+    order = np.lexsort((vals, keys))
+    starts, counts = _runs(keys[order])
+    vs = vals[order]
+    r = np.round(q * (counts - 1.0)).astype(np.int64)
+    eps = n_chunks * counts // k + 1
+    lo = vs[starts + np.maximum(r - eps, 0)]
+    hi = vs[starts + np.minimum(r + eps, counts - 1)]
+    picks = np.asarray(picks)
+    return int(((picks < lo) | (picks > hi)).sum())
 
 
 def ds_sketch_global(data) -> list[tuple]:

@@ -32,6 +32,14 @@ compute the same answer.
 card runs at SF1 and SF10 (``ds_q39_inv`` at SF1 only), with exact
 references in ``numpy_reference``.
 
+``BUDGETED_STATEMENTS`` run under an ``hbm_budget_bytes`` that makes
+lineitem stream: semi joins (IN, NOT IN, EXISTS), a chunked cross join,
+TPC-H Q1's limb-sum PARTIAL and the sketches' and ``*_by``/variance
+PARTIAL/FINAL split (integer variance arguments, whose moments are exact
+in float64, so the rows equal the resident ones). Each names the spill
+path it must enter and the tolerance of sqlite's answer (None: sqlite
+has no such function).
+
 The differential tests (port against the JAX package and sqlite) and
 the card tests (cuda against cpu) share them.
 """
@@ -44,6 +52,7 @@ from trino_tpu_torch.testing.numpy_reference import FJ_SQL, q18_sql
 __all__ = [
     "JOIN_STATEMENTS", "STRING_STATEMENTS", "WINDOW_STATEMENTS", "SQLITE_FORMS",
     "AGGREGATE_STATEMENTS", "AGGREGATE_SQLITE", "SKETCH_CARD",
+    "BUDGETED_STATEMENTS",
 ]
 
 _IN_PROBE = "select _col0 from (values 1, 3, null) a where _col0 "
@@ -555,4 +564,51 @@ from (select w_warehouse_name, w_warehouse_sk, i_item_sk, d_moy,
       where inv_item_sk = i_item_sk and inv_warehouse_sk = w_warehouse_sk
         and inv_date_sk = d_date_sk and d_year = 2001
       group by w_warehouse_name, w_warehouse_sk, i_item_sk, d_moy) foo""",
+}
+
+#: name -> (sql, spill path entered, sqlite's tolerance or None)
+BUDGETED_STATEMENTS = {
+    "in_semi": (
+        "select count(*), sum(l_quantity) from lineitem where l_orderkey in "
+        "(select o_orderkey from orders where o_totalprice > 300000)",
+        "streamed_semi_join", 1e-9,
+    ),
+    "not_in_semi": (
+        "select count(*), sum(l_quantity) from lineitem where l_suppkey "
+        "not in (select s_suppkey from supplier where s_acctbal > 5000)",
+        "streamed_semi_join", 1e-9,
+    ),
+    "exists_semi": (
+        "select count(*), sum(l_extendedprice) from lineitem where exists "
+        "(select * from supplier where s_suppkey = l_suppkey "
+        "and s_acctbal > 5000)",
+        "streamed_semi_join", 1e-9,
+    ),
+    "probe_join": (
+        "select o_orderpriority, count(*), sum(l_quantity) from lineitem, "
+        "orders where l_orderkey = o_orderkey "
+        "and o_orderdate < date '1993-01-01' group by 1 order by 1",
+        "streamed_probe_join", 1e-9,
+    ),
+    "cross_budget": (
+        "select count(*), sum(l_quantity * r_regionkey) from lineitem, region",
+        "chunked_cross_join", 1e-9,
+    ),
+    # avg of a decimal rounds to its scale; sqlite's is a binary float
+    "q01": (QUERIES["q01"], "run_chain_streamed", 0.01),
+    "sketch_grouped": (
+        "select l_returnflag, count(*), approx_distinct(l_partkey), "
+        "approx_distinct(l_shipmode), max_by(l_orderkey, l_extendedprice), "
+        "min_by(l_orderkey, l_extendedprice), arbitrary(l_linestatus), "
+        "bool_or(l_quantity > 49), bool_and(l_quantity > 0), "
+        "stddev_samp(l_linenumber), var_pop(l_suppkey) "
+        "from lineitem group by l_returnflag order by 1",
+        "run_chain_streamed", None,
+    ),
+    "sketch_global": (
+        "select approx_distinct(l_comment), approx_distinct(l_orderkey), "
+        "max_by(l_orderkey, l_extendedprice), variance(l_linenumber), "
+        "count(*) from lineitem",
+        "run_chain_streamed", None,
+    ),
 }
