@@ -13,7 +13,8 @@ Run from the repository root, with no arguments:
    pack_words, K9 seg_minmax, K10 order_words, W1 window_peers, W2
    range_sum, W3 range_minmax, W4 seg_searchsorted, A1 hll_registers, A2
    hll_estimate, A3 seg_arg_extreme, A4 hll_merge, A5 quant_summary, A6
-   quant_merge) runs on the card at the main path's
+   quant_merge, M1 partition_pack, M2 segment_reduce) runs on the card at
+   the main path's
    shapes (TPC-H SF10 scale: 60M rows with 4 and with 1.5M groups, and 8M
    partsupp rows in 2M groups; a 15M-row build side against a 60M-row
    probe; 15M probe rows of 1-7 matches each, ~60M expanded positions,
@@ -32,7 +33,12 @@ Run from the repository root, with no arguments:
    items x 512, of 5 x 4096 globally and with one group holding every
    partial row; the quantile summaries of one 5.8M-row chunk in 180K
    items (k = 256) and globally (k = 1024); their merge over 5 x 180K
-   partial rows of 256 points and over one group of 5 x 1024), is held
+   partial rows of 256 points and over one group of 5 x 1024. The mesh at
+   SF10 on 8 shards: one 7.5M-row shard of Q3's lineitem exchange packed
+   into 8 buckets, also with one destination owning 60% so that it
+   overflows; 60M int64 and float64 values scattered into 16 and into
+   1.5M slots, float64 min/max with NaN and -0.0, and an 8-slot
+   histogram of 60M destinations), is held
    against its plain torch version on the same inputs
    (integers, booleans, positions, registers, estimates, summaries,
    picks, min/max and sort words exactly, float64 group sums to relative 1e-12 and float64 frame
@@ -88,7 +94,22 @@ Run from the repository root, with no arguments:
    the launches and spill entries of each query's runs, and the calls of
    count_true, blocked_sum and _presort_shared on each path, are
    printed.
-6. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
+6. Mesh path, run between the TPC-H and TPC-DS paths (``MESH_SHARDS`` =
+   8 shards on ``cuda:0``, one process driving a device list): new mesh
+   runners over the TPC-H path's SF10 and SF1 metadata (their planner
+   statistics warm; the single-device runners are released first, the
+   metadata as the mesh path finishes with it) and a new TPC-DS SF1
+   runner run
+   Q1, Q3 and Q18 at SF10 (cold, 3 warm, one to the result page), the
+   SF1 statements (cold, 1 warm, one to the page), an ORDER BY over all
+   of lineitem that must take a range exchange (its keys in numpy's
+   lexsort order), a 6M-row skewed join through the memory connector
+   that must take the skew split, and TPC-DS q3 and q86 at SF1, each
+   against its numpy reference, with its exchanges, bytes moved,
+   escalations, host syncs, skew splits and range exchanges printed, and
+   the peak device memory per phase. M1, M2, K1-K4 and K7 must be
+   launched on it.
+7. Prints one ``{"kernels": [...]}`` line, the nvidia-smi line again, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Any build failure, launch error or mismatch exits non-zero. Without CUDA,
@@ -98,6 +119,7 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -1204,6 +1226,159 @@ Q11_FRACTION = {"sf1": "0.0001000000", "sf10": "0.0000100000"}
 SF10_QUERIES = ("q01", "q03", "q18")
 
 
+# ---- the mesh's kernels: M1 partition_pack and M2 segment_reduce -----------
+
+#: shards of the mesh path: 8 on one card, as the JAX package's mesh tests
+#: run 8 shards on one CPU (the skew split needs n > 4 to trip)
+MESH_SHARDS = 8
+
+
+def m1_case(torch, np, K, shapes, dev, hot: bool):
+    """One shard of lineitem's Q3 exchange at SF10 on 8 shards: 7.5M rows
+    padded to the shard capacity, l_orderkey, l_extendedprice and
+    l_discount as int64, ~54% live (l_shipdate > 1995-03-15), the
+    destination the unsigned hash of the key modulo 8; ``hot``: one
+    destination owns 60% of the rows, so the default bucket overflows."""
+    from trino_tpu_torch.page import pad_capacity
+
+    rows = LINEITEM_ROWS // MESH_SHARDS
+    cap = pad_capacity(rows)
+    rng = np.random.default_rng(SEED + 700 + int(hot))
+    live = np.zeros(cap, dtype=bool)
+    live[:rows] = rng.random(rows) < 0.54
+    key = torch.from_numpy(rng.integers(1, 60_000_000, cap, dtype=np.int64)).to(dev)
+    payload = [
+        key,
+        torch.from_numpy(rng.integers(90_000, 10_500_000, cap, dtype=np.int64)).to(dev),
+        torch.from_numpy(rng.integers(0, 11, cap, dtype=np.int64)).to(dev),
+    ]
+    dest = K.umod(K.hash_keys([(key, None)]), MESH_SHARDS)
+    if hot:
+        dest = torch.where(torch.from_numpy(rng.random(cap) < 0.6).to(dev),
+                           torch.full_like(dest, 5), dest)
+    bucket = shapes.exchange_bucket(cap, MESH_SHARDS)
+    return dest, torch.from_numpy(live).to(dev), payload, bucket
+
+
+def m1_phase(torch, K, dest, live, payload, bucket, hot: bool) -> dict:
+    n = dest.shape[0]
+    got = K.partition_pack(dest, live, payload, MESH_SHARDS, bucket)
+    want = K.partition_pack_plain(dest, live, payload, MESH_SHARDS, bucket)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got[0], want[0])):
+        if not same(torch, a, b):
+            fail(f"partition_pack: bucket column {i} differs from the plain version")
+    if not same(torch, got[1], want[1]) or not same(torch, got[2], want[2]):
+        fail("partition_pack: sent-live flags or counts differ from the plain version")
+    overflowed = bool((got[2] > bucket).any())
+    if overflowed != hot:
+        fail(f"partition_pack: overflow {overflowed}, expected {hot}")
+    width = sum(p.element_size() for p in payload)
+    slots = MESH_SHARDS * bucket
+    # dest is read only for live rows, and the payload only for live rows
+    # that fit their bucket
+    n_live = int(live.sum())
+    n_fit = int(want[2].clamp(max=bucket).sum())
+    return {
+        "max_abs_err": 0,
+        "ms": timed_ms(torch, lambda: K.partition_pack(
+            dest, live, payload, MESH_SHARDS, bucket)),
+        "plain_ms": timed_ms(torch, lambda: K.partition_pack_plain(
+            dest, live, payload, MESH_SHARDS, bucket)),
+        "library_ms": None,  # no one PyTorch call packs rows stably
+        # live (1 B) for every row, dest for live rows and the payload
+        # for the rows that fit in; the zero-filled buckets, the
+        # sent-live flags and the counts out
+        "bound_ms": bound_ms(n + n_live * dest.element_size() + n_fit * width
+                             + slots * (width + 1) + MESH_SHARDS * 8),
+        "rows": n, "bucket": bucket, "live": n_live, "fit": n_fit,
+        "overflowed": overflowed,
+    }
+
+
+def m2_case(torch, np, dev, n_seg: int, dtype_name: str, special: bool = False):
+    """60M values (lineitem at SF10) with int64 group ids in [0, n_seg):
+    int64 32-bit decimal limbs, or float64 (``special``: NaN, -0.0 and
+    +0.0 among them)."""
+    rng = np.random.default_rng(SEED + 800 + n_seg + int(special))
+    ids = torch.from_numpy(rng.integers(0, n_seg, LINEITEM_ROWS, dtype=np.int64)).to(dev)
+    if dtype_name == "int64":
+        vals = rng.integers(0, 1 << 32, LINEITEM_ROWS, dtype=np.int64)
+    else:
+        vals = rng.normal(size=LINEITEM_ROWS) * 1e6
+        if special:
+            vals[rng.random(LINEITEM_ROWS) < 1e-6] = np.nan
+            vals[rng.random(LINEITEM_ROWS) < 0.05] = -0.0
+            vals[rng.random(LINEITEM_ROWS) < 0.05] = 0.0
+    return torch.from_numpy(vals).to(dev), ids
+
+
+def m2_phase(torch, K, vals, ids, n_seg: int, op: str) -> dict:
+    got = K.segment_reduce(vals, ids, n_seg, op)
+    want = K.segment_reduce_plain(vals, ids, n_seg, op)
+    torch.cuda.synchronize()
+    tag = f"segment_reduce {op} {vals.dtype} into {n_seg}"
+    err = 0
+    if vals.dtype == torch.float64 and op == "sum":
+        err = float((got - want).abs().max())
+        tol = 1e-12 * float(want.abs().max()) + 1e-9
+        if err > tol:
+            fail(f"{tag}: max error {err} > {tol}")
+    elif vals.dtype == torch.float64:
+        if not same(torch, torch.isnan(got), torch.isnan(want)):
+            fail(f"{tag}: NaN slots differ from the plain version")
+        ok = ~torch.isnan(want)
+        if not same(torch, got[ok], want[ok]) or not same(
+                torch, torch.signbit(got[ok]), torch.signbit(want[ok])):
+            fail(f"{tag}: differs from the plain version")
+    elif not same(torch, got, want):
+        fail(f"{tag}: differs from the plain version")
+    if op == "sum":
+        def library():
+            return torch.zeros(n_seg, dtype=vals.dtype, device=vals.device
+                               ).index_add_(0, ids, vals)
+    else:
+        def library():
+            return torch.empty(n_seg, dtype=vals.dtype, device=vals.device
+                               ).scatter_reduce_(0, ids, vals, "amin" if op == "min"
+                                                 else "amax", include_self=False)
+    n = vals.shape[0]
+    return {
+        "max_abs_err": err,
+        "ms": timed_ms(torch, lambda: K.segment_reduce(vals, ids, n_seg, op)),
+        "plain_ms": timed_ms(torch, lambda: K.segment_reduce_plain(vals, ids, n_seg, op)),
+        "library_ms": timed_ms(torch, library),
+        # values and ids (8 B each) in, the slots (8 B) out
+        "bound_ms": bound_ms(n * 16 + n_seg * 8),
+        "rows": n, "segments": n_seg, "op": op, "dtype": str(vals.dtype),
+    }
+
+
+def mesh_kernel_phases(torch, np, K, shapes, dev) -> dict:
+    out = {}
+    out["m1"] = m1_phase(torch, K, *m1_case(torch, np, K, shapes, dev, False), False)
+    out["m1_hot"] = m1_phase(torch, K, *m1_case(torch, np, K, shapes, dev, True), True)
+    torch.cuda.empty_cache()
+    for n_seg in (16, 1_500_000):
+        for dt in ("int64", "float64"):
+            vals, ids = m2_case(torch, np, dev, n_seg, dt)
+            out[f"m2_{dt}_{n_seg}"] = m2_phase(torch, K, vals, ids, n_seg, "sum")
+            del vals, ids
+    vals, ids = m2_case(torch, np, dev, 16, "float64", special=True)
+    out["m2_min"] = m2_phase(torch, K, vals, ids, 16, "min")
+    out["m2_max"] = m2_phase(torch, K, vals, ids, 16, "max")
+    del vals, ids
+    # _dest_counts' histogram: live flags of 60M rows by destination
+    rng = np.random.default_rng(SEED + 900)
+    dest = torch.from_numpy(rng.integers(0, MESH_SHARDS, LINEITEM_ROWS,
+                                         dtype=np.int64)).to(dev)
+    live = torch.from_numpy((rng.random(LINEITEM_ROWS) < 0.9).astype(np.int64)).to(dev)
+    out["m2_hist"] = m2_phase(torch, K, live, dest, MESH_SHARDS, "sum")
+    del dest, live
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_query(torch, K, runner, data, name, sql, ref, scale, R, want=None,
               warm_runs=3, label="") -> dict:
     """One statement: a cold run checked against its numpy reference
@@ -1259,8 +1434,12 @@ def spill_paths_taken(entries) -> list[str]:
     return [k for k in spill.PATHS if entries.get(k)]
 
 
-def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
-    """The TPC-H path: every statement at SF1, SF10_QUERIES at SF10."""
+def main_path(torch, K, QueryRunner, QUERIES, R, keep) -> dict:
+    """The TPC-H path: every statement at SF1, SF10_QUERIES at SF10. Each
+    scale's metadata (its connector's generated data and the planner's
+    column statistics), session, statements and references go into
+    ``keep`` for the mesh path; the runners and their device tables are
+    released."""
     results = {}
     for scale in ("sf1", "sf10"):
         fraction = Q11_FRACTION[scale]
@@ -1299,6 +1478,7 @@ def main_path(torch, K, QueryRunner, QUERIES, R) -> dict:
         print(f"TPC-H {scale}: peak device memory "
               f"{results[f'{scale}_peak_bytes'] / 1e9:.2f} GB, "
               f"{results[f'{scale}_seconds']:.1f} s", flush=True)
+        keep[scale] = (runner.metadata, runner.session, data, queries, wants)
         del runner, data
         torch.cuda.empty_cache()
     return results
@@ -1479,6 +1659,165 @@ def tpcds_path(torch, K, QueryRunner, DS_QUERIES, SKETCH_CARD, R,
     return results
 
 
+# ---- the mesh path ------------------------------------------------------------
+
+#: the ORDER BY over all of lineitem that must take a range exchange
+MESH_ORDER_SQL = (
+    "select l_orderkey, l_linenumber, l_quantity from lineitem "
+    "order by l_orderkey desc, l_linenumber"
+)
+#: the skewed join of the memory connector: probe rows at SF1 scale
+SKEW_PROBE_ROWS = 6_000_000
+
+
+def release(torch) -> None:
+    """Free the device memory of released runners: an executor and its
+    runner hold each other, so their tensors go with the cycle collector,
+    then the caching allocator's blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_stats(ex) -> dict:
+    return {
+        "exchanges": ex.exchange_stats["exchanges"],
+        "bytes": ex.exchange_stats["bytes"],
+        "escalations": ex.exchange_escalations,
+        "host_syncs": ex.host_syncs,
+        "skew_joins": ex.skew_joins,
+        "range_exchanges": ex.range_exchanges,
+    }
+
+
+def mesh_query(torch, K, runner, data, name, sql, ref, scale, R, want,
+               warm_runs) -> dict:
+    """``run_query`` on a mesh runner, with the executor's exchanges,
+    bytes moved, escalations, host syncs, skew splits and range exchanges
+    over its runs."""
+    before = mesh_stats(runner.executor)
+    res = run_query(torch, K, runner, data, name, sql, ref, scale, R,
+                    want=want, warm_runs=warm_runs,
+                    label=f" on the {MESH_SHARDS}-shard mesh")
+    after = mesh_stats(runner.executor)
+    runs = warm_runs + 2
+    res["mesh"] = {k: after[k] - before[k] for k in after}
+    res["mesh"]["runs"] = runs
+    print(f"mesh {name} {scale}: in {runs} runs {res['mesh']}", flush=True)
+    return res
+
+
+def mesh_runner(QueryRunner, make_mesh, md, session):
+    runner = QueryRunner(md, session, mesh=make_mesh(MESH_SHARDS))
+    if [d.type for d in runner.mesh.devices] != ["cuda"] * MESH_SHARDS:
+        fail(f"the mesh is on {runner.mesh.devices}")
+    return runner
+
+
+def mesh_order_by(torch, np, runner, data) -> dict:
+    """MESH_ORDER_SQL to the result page: it must take a range exchange,
+    and the keys must come out in numpy's lexsort order."""
+    ex = runner.executor
+    before = ex.range_exchanges
+    tc = time.perf_counter()
+    _, page = runner.execute_page(MESH_ORDER_SQL)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - tc) * 1e3
+    if ex.range_exchanges == before:
+        fail("the mesh ORDER BY over lineitem took no range exchange")
+    key = np.asarray(data.column("lineitem", "l_orderkey")).astype(np.int64)
+    line = np.asarray(data.column("lineitem", "l_linenumber")).astype(np.int64)
+    order = np.lexsort((line, -key))
+    live = page.mask.cpu().numpy()
+    got_key = page.column("l_orderkey").data.cpu().numpy()[live]
+    got_line = page.column("l_linenumber").data.cpu().numpy()[live]
+    if not (np.array_equal(got_key, key[order])
+            and np.array_equal(got_line, line[order])):
+        fail("the mesh ORDER BY over lineitem is out of order")
+    print(f"mesh order_by sf1: {len(order)} rows in order through "
+          f"{ex.range_exchanges - before} range exchange(s), cold {ms:.1f} ms "
+          "to the result page", flush=True)
+    return {"rows": int(len(order)), "cold_page_ms": ms,
+            "range_exchanges": ex.range_exchanges - before}
+
+
+def mesh_skew_join(torch, np, K, QueryRunner, make_mesh, R) -> dict:
+    """The skewed join of test_parallel.py at SF1 scale: 6M probe rows,
+    90% on key 7 (default_rng(5)), against 1000 build rows, PARTITIONED;
+    it must take the skew split and equal its numpy count and sum."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.connectors.base import TableSchema
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.metadata import Metadata, Session
+
+    n = SKEW_PROBE_ROWS
+    rng = np.random.default_rng(5)
+    keys = np.where(rng.random(n) < 0.9, 7, rng.integers(0, 1000, n)).astype(np.int64)
+    md = Metadata()
+    md.register_catalog("memory", MemoryConnector())
+    conn = md.connector("memory")
+    conn.create_table("default", "probe", TableSchema(
+        "probe", [("k", T.BIGINT), ("v", T.BIGINT)]))
+    conn.insert("default", "probe", {"k": keys, "v": np.arange(n, dtype=np.int64)})
+    conn.create_table("default", "build", TableSchema(
+        "build", [("k", T.BIGINT), ("w", T.BIGINT)]))
+    conn.insert("default", "build", {"k": np.arange(1000, dtype=np.int64),
+                                     "w": np.arange(1000, dtype=np.int64) * 10})
+    runner = mesh_runner(QueryRunner, make_mesh, md,
+                         Session(catalog="memory", schema="default"))
+    runner.session.properties["join_distribution_type"] = "PARTITIONED"
+    sql = "select count(*), sum(w) from probe, build where probe.k = build.k"
+    want = [(n, int(np.sum(keys * 10)))]
+    res = mesh_query(torch, K, runner, None, "skew_join", sql, None, "sf1", R,
+                     want, warm_runs=1)
+    if res["mesh"]["skew_joins"] < res["mesh"]["runs"]:
+        fail(f"the skewed join did not take the skew split: {res['mesh']}")
+    return res
+
+
+def mesh_path(torch, np, K, QueryRunner, make_mesh, R, DS_QUERIES,
+              tpch_keep) -> dict:
+    """The mesh path: 8 shards on one card. SF10 Q1, Q3 and Q18 over the
+    SF10 metadata of the TPC-H path (cold, 3 warm, one to the result
+    page), the SF1 statements of the TPC-H path (cold, one warm, one to
+    the page) and an ORDER BY over all of lineitem at SF1, the skewed
+    join, and TPC-DS q3 and q86 at SF1 on a new TPC-DS runner; every
+    statement against its numpy reference. The TPC-H metadata is
+    released as it is used, before the TPC-DS path runs."""
+    results = {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for scale, warm in (("sf10", 3), ("sf1", 1)):
+        md, session, data, queries, wants = tpch_keep.pop(scale)
+        runner = mesh_runner(QueryRunner, make_mesh, md, session)
+        for name, sql, ref in queries:
+            results[f"{name}_{scale}_mesh"] = mesh_query(
+                torch, K, runner, data, name, sql, ref, scale, R,
+                wants[name], warm)
+        if scale == "sf1":
+            results["order_by_sf1_mesh"] = mesh_order_by(torch, np, runner, data)
+        results[f"{scale}_peak_bytes"] = torch.cuda.max_memory_allocated()
+        print(f"mesh TPC-H {scale}: peak device memory "
+              f"{results[f'{scale}_peak_bytes'] / 1e9:.2f} GB", flush=True)
+        del runner, md, session, data
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+    results["skew_join_sf1_mesh"] = mesh_skew_join(
+        torch, np, K, QueryRunner, make_mesh, R)
+    release(torch)
+    runner = QueryRunner.tpcds("sf1", mesh=make_mesh(MESH_SHARDS))
+    data = runner.metadata.connector("tpcds").data("sf1")
+    for name, sql, ref in (("ds_q03", DS_QUERIES["q3"], R.ds_q03),
+                           ("ds_q86", DS_QUERIES["q86"], R.ds_q86)):
+        results[f"{name}_sf1_mesh"] = mesh_query(
+            torch, K, runner, data, name, sql, ref, "sf1", R, ref(data), 1)
+    results["ds_sf1_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del runner, data
+    release(torch)
+    results["seconds"] = time.perf_counter() - t0
+    print(f"mesh path: {results['seconds']:.1f} s", flush=True)
+    return results
+
+
 #: the kernels each path must launch
 TPCH_KERNELS = (
     "group_ids", "seg_sum", "join_probe", "expand_matches", "range_any",
@@ -1488,6 +1827,10 @@ TPCDS_KERNELS = (
     "window_peers", "range_sum", "range_minmax", "seg_searchsorted",
     "hll_registers", "hll_estimate", "seg_arg_extreme", "hll_merge",
     "quant_summary", "quant_merge",
+)
+MESH_KERNELS = (
+    "partition_pack", "segment_reduce", "group_ids", "seg_sum", "join_probe",
+    "expand_matches", "hash_keys",
 )
 
 
@@ -1540,6 +1883,7 @@ def main() -> int:
     from trino_tpu_torch.exec import kernels as K
     from trino_tpu_torch.exec import native, shapes, stage
     from trino_tpu_torch.memory import ExceededMemoryLimitError
+    from trino_tpu_torch.parallel import make_mesh
     from trino_tpu_torch.testing import numpy_reference as R
     from trino_tpu_torch.testing.statements import SKETCH_CARD
 
@@ -1598,6 +1942,7 @@ def main() -> int:
     ak = agg_phases(torch, np, K, shapes, dev)
     torch.cuda.empty_cache()
     sk = split_phases(torch, np, K, A, shapes, dev)
+    mk = mesh_kernel_phases(torch, np, K, shapes, dev)
     counting = count_true_phase(torch, np, K, dev)
     print("count_true " + json.dumps(counting), flush=True)
     torch.cuda.empty_cache()
@@ -1642,6 +1987,10 @@ def main() -> int:
                           "trino_tpu/exec/aggregates.py:527"),
         "quant_merge": ("trino_tpu_torch/csrc/quant_merge.cu",
                         "trino_tpu/exec/aggregates.py:555"),
+        "partition_pack": ("trino_tpu_torch/csrc/partition_pack.cu",
+                           "trino_tpu/parallel/exchange.py:25"),
+        "segment_reduce": ("trino_tpu_torch/csrc/segment_reduce.cu",
+                           "trino_tpu/exec/kernels.py:650"),
     }
     rows = f"{LINEITEM_ROWS / 1e6:g}M rows"
     join = f"{ORDERS_ROWS / 1e6:g}M build, {LINEITEM_ROWS / 1e6:g}M probe"
@@ -1741,6 +2090,22 @@ def main() -> int:
         sk["a6_grouped"], case=f"{chunks5} x 256 points (~230M), q = 0.5 "
                                "(ds_sketch_item's FINAL; with its two sorts)",
         cases=[dict(sk["a6_global"], case="one group of 5 x 1024 points")])
+    shard = (f"one {LINEITEM_ROWS // MESH_SHARDS / 1e6:g}M-row shard of Q3's "
+             f"lineitem exchange (3 int64 columns, 54% live) to {MESH_SHARDS} "
+             f"buckets of {mk['m1']['bucket']}")
+    entries["partition_pack"] = dict(
+        mk["m1"], case=shard,
+        cases=[dict(mk["m1_hot"], case=f"{shard}, one destination owning 60% "
+                    "(overflows, rows dropped)")])
+    entries["segment_reduce"] = dict(
+        mk["m2_int64_16"], case=f"{rows} int64 into 16 slots, sum (q1_step's shape)",
+        cases=[dict(mk["m2_float64_16"], case=f"{rows} float64 into 16 slots, sum"),
+               dict(mk["m2_int64_1500000"], case=f"{rows} int64 into 1.5M slots, sum"),
+               dict(mk["m2_float64_1500000"], case=f"{rows} float64 into 1.5M slots, sum"),
+               dict(mk["m2_min"], case=f"{rows} float64 with NaN and -0.0 into 16 slots, min"),
+               dict(mk["m2_max"], case=f"{rows} float64 with NaN and -0.0 into 16 slots, max"),
+               dict(mk["m2_hist"], case=f"{rows}: live flags by destination into "
+                    f"{MESH_SHARDS} slots (_dest_counts)")])
     for name, e in entries.items():
         print(f"kernel {name} [{e['case']}]: {e['ms']:.3f} ms, plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']} ms, bound "
@@ -1752,18 +2117,30 @@ def main() -> int:
                   f"{c['max_abs_err']}", flush=True)
 
     # ---- main path: TPC-H, then TPC-DS, each with the counts set to 0
+    # the TPC-H metadata (generated data, planner statistics) the mesh path
+    # reuses and then releases, before the TPC-DS path
+    tpch_keep = {}
     path, tpch_launches, tpch_calls = drive(
         torch, K, stage, "TPC-H", TPCH_KERNELS,
-        lambda: main_path(torch, K, QueryRunner, QUERIES, R))
+        lambda: main_path(torch, K, QueryRunner, QUERIES, R, tpch_keep))
     print("main_path " + json.dumps(path, sort_keys=True), flush=True)
+    m_path, mesh_launches, mesh_calls = drive(
+        torch, K, stage, "mesh", MESH_KERNELS,
+        lambda: mesh_path(torch, np, K, QueryRunner, make_mesh, R, DS_QUERIES,
+                          tpch_keep))
+    print("mesh_path " + json.dumps(m_path, sort_keys=True), flush=True)
     ds_path, ds_launches, ds_calls = drive(
         torch, K, stage, "TPC-DS", TPCDS_KERNELS,
         lambda: tpcds_path(torch, K, QueryRunner, DS_QUERIES, SKETCH_CARD, R,
                            ExceededMemoryLimitError, np))
     print("tpcds_path " + json.dumps(ds_path, sort_keys=True), flush=True)
-    launches = {k: tpch_launches[k] + ds_launches[k] for k in K.KERNELS}
+    launches = {
+        k: tpch_launches[k] + ds_launches[k] + mesh_launches[k]
+        for k in K.KERNELS
+    }
     print("calls on the paths " + json.dumps(
-        {k: tpch_calls[k] + ds_calls[k] for k in tpch_calls}), flush=True)
+        {k: tpch_calls[k] + ds_calls[k] + mesh_calls[k] for k in tpch_calls}),
+        flush=True)
     print(f"total seconds: {time.perf_counter() - t0:.1f}", flush=True)
 
     kernels = []
@@ -1774,6 +2151,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "launches_tpch": tpch_launches[name],
             "launches_tpcds": ds_launches[name],
+            "launches_mesh": mesh_launches[name],
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": "bytes", "library_ms": e["library_ms"],

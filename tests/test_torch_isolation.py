@@ -78,6 +78,49 @@ def test_spill_tier_loads_no_jax_or_reference_module():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+def test_mesh_loads_no_jax_or_reference_module():
+    """The device mesh (``parallel/``, ``exec/mesh.py``, the distribution
+    planner, the memory connector and the fault injector) loads nothing
+    of JAX either."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from trino_tpu_torch import types as T\n"
+        "from trino_tpu_torch.connectors.base import TableSchema\n"
+        "from trino_tpu_torch.connectors.memory import MemoryConnector\n"
+        "from trino_tpu_torch.engine import QueryRunner\n"
+        "from trino_tpu_torch.metadata import Metadata, Session\n"
+        "from trino_tpu_torch.parallel import make_mesh\n"
+        "from trino_tpu_torch.parallel.groupby import q1_step\n"
+        "r = QueryRunner.tpch('tiny', mesh=make_mesh(8, device='cpu'))\n"
+        "assert len(r.execute('select l_returnflag, count(*) from lineitem "
+        "group by 1 order by 1').rows) == 3\n"
+        "assert r.executor.exchange_stats['exchanges'] >= 2\n"
+        "md = Metadata()\n"
+        "md.register_catalog('memory', MemoryConnector())\n"
+        "md.connector('memory').create_table('default', 't', "
+        "TableSchema('t', [('k', T.BIGINT)]))\n"
+        "md.connector('memory').insert('default', 't', "
+        "{'k': np.arange(10, dtype=np.int64)})\n"
+        "m = QueryRunner(md, Session(catalog='memory', schema='default'), "
+        "mesh=make_mesh(4, device='cpu'))\n"
+        "assert m.execute('select sum(k) from t').rows == [(45,)]\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    for m in ("trino_tpu_torch.exec.mesh", "trino_tpu_torch.parallel.exchange",
+              "trino_tpu_torch.parallel.groupby", "trino_tpu_torch.fault",
+              "trino_tpu_torch.exec.failure",
+              "trino_tpu_torch.connectors.memory"):
+        assert m in loaded, m
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -109,6 +152,11 @@ def test_runner_without_device_raises_when_cuda_is_absent(monkeypatch):
         QueryRunner.tpcds("tiny")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         QueryRunner()
+    from trino_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(8)
+    assert make_mesh(8, device="cpu").devices.size == 8
     assert QueryRunner.tpch("tiny", device="cpu").device.type == "cpu"
     assert QueryRunner.tpcds("tiny", device="cpu").device.type == "cpu"
 

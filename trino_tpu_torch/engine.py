@@ -1,13 +1,16 @@
 """Top-level query engine facade — the port of ``trino_tpu/engine.py``.
 
 SQL in, rows out: parse, analyze, optimize, then execute on one torch
-device. The runner runs on the card (``cuda``) unless the caller asks
+device, or with a ``mesh`` (``parallel.core.make_mesh``) distribution-plan
+the statement (``plan.distribute.add_exchanges``) and run it over the
+mesh's shards (``exec.mesh.MeshExecutor``; the DistributedQueryRunner
+analog). The runner runs on the card (``cuda``) unless the caller asks
 for another device; with CUDA absent and no device given it raises
 rather than quietly running on the CPU.
 
 Only queries (``SELECT`` / ``WITH`` / ``VALUES``) execute; metadata
-statements, EXPLAIN, DDL and DML, the device mesh, the result cache,
-the performance sentry and the tracer are not ported yet.
+statements, EXPLAIN, DDL and DML, the result cache, the performance
+sentry and the tracer are not ported yet.
 """
 
 from __future__ import annotations
@@ -61,34 +64,49 @@ class QueryRunner:
         metadata: Metadata | None = None,
         session: Session | None = None,
         device=None,
+        mesh=None,
     ):
         self.metadata = metadata or Metadata()
         self.session = session or Session()
-        self.device = resolve_device(device)
+        self.mesh = mesh
         # statements execute serially per runner: the executor's scan
         # cache and the session are shared mutable state
         self._lock = threading.RLock()
         # one executor across queries keeps scanned tables resident
-        self.executor = LocalExecutor(self.metadata, self.session, self.device)
+        if mesh is not None:
+            from trino_tpu_torch.exec.mesh import MeshExecutor
+
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(
+                    f"device {device} is not the mesh's first device "
+                    f"{mesh.devices[0]}")
+            self.device = mesh.devices[0]
+            self.executor = MeshExecutor(self.metadata, self.session, mesh)
+        else:
+            self.device = resolve_device(device)
+            self.executor = LocalExecutor(
+                self.metadata, self.session, self.device)
 
     @staticmethod
-    def tpch(schema: str = "tiny", device=None) -> "QueryRunner":
+    def tpch(schema: str = "tiny", device=None, mesh=None) -> "QueryRunner":
         """Runner with the TPC-H catalog mounted."""
         md = Metadata()
         md.register_catalog("tpch", TpchConnector())
         return QueryRunner(
-            md, Session(catalog="tpch", schema=schema), device=device
+            md, Session(catalog="tpch", schema=schema), device=device,
+            mesh=mesh,
         )
 
     @staticmethod
-    def tpcds(schema: str = "tiny", device=None) -> "QueryRunner":
+    def tpcds(schema: str = "tiny", device=None, mesh=None) -> "QueryRunner":
         """Runner with the TPC-DS catalog mounted."""
         from trino_tpu_torch.connectors.tpcds.connector import TpcdsConnector
 
         md = Metadata()
         md.register_catalog("tpcds", TpcdsConnector())
         return QueryRunner(
-            md, Session(catalog="tpcds", schema=schema), device=device
+            md, Session(catalog="tpcds", schema=schema), device=device,
+            mesh=mesh,
         )
 
     # ---- planning --------------------------------------------------------
@@ -104,6 +122,16 @@ class QueryRunner:
         plan = analyzer.analyze(stmt)
         if optimized:
             plan = optimize(plan, self.metadata, self.session)
+            if self.mesh is not None:
+                from trino_tpu_torch.plan import validate
+                from trino_tpu_torch.plan.distribute import add_exchanges
+
+                plan = add_exchanges(
+                    plan, self.metadata, n_shards=self.mesh.devices.size,
+                    session=self.session,
+                )
+                if validate.level(self.session) != "OFF":
+                    validate.validate_plan(plan, phase="add_exchanges")
             from trino_tpu_torch.plan.stats import annotate
 
             plan = annotate(plan, self.metadata, self.session)

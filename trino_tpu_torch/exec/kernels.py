@@ -2,7 +2,7 @@
 ``trino_tpu/exec/kernels.py``.
 
 Everything is a whole-column computation on tensors of the executor's
-device. Twenty functions have hand-written CUDA kernels (``csrc/``),
+device. Twenty-two functions have hand-written CUDA kernels (``csrc/``),
 each beside its plain torch version:
 
 - ``group_ids`` (K1): dense group ids, the inverse permutation and the
@@ -45,7 +45,12 @@ each beside its plain torch version:
   PARTIAL k-point summary (``aggregates.py:_quant_summary``);
 - ``quant_merge`` (A6, ``csrc/quant_merge.cu``): the FINAL weighted rank
   pick over merged summaries (``aggregates.py:_quant_merge``), whose
-  sorts stay ``torch.sort``.
+  sorts stay ``torch.sort``;
+- ``partition_pack`` (M1): a shard's rows packed stably into
+  per-destination buckets, the send side of the mesh's exchanges
+  (``parallel/exchange.py:partition_exchange``);
+- ``segment_reduce`` (M2): scatter sums, minima and maxima by group id
+  (``kernels.py:seg_sum``/``seg_min``/``seg_max``).
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (and adds one to its ``launches`` count)
@@ -69,6 +74,7 @@ Conventions of the port:
 
 from __future__ import annotations
 
+import math
 import struct
 from typing import NamedTuple
 
@@ -83,6 +89,7 @@ __all__ = [
     "limb_parts",
     "GroupInfo",
     "group_by",
+    "assign_groups",
     "pack_keys",
     "pack_keys_plain",
     "group_ids",
@@ -130,6 +137,11 @@ __all__ = [
     "quant_summary_plain",
     "quant_merge",
     "quant_merge_plain",
+    "umod",
+    "segment_reduce",
+    "segment_reduce_plain",
+    "partition_pack",
+    "partition_pack_plain",
 ]
 
 I64 = torch.int64
@@ -400,6 +412,20 @@ def group_by(
             fs = flag[perm]
             same = same & (fs == torch.roll(fs, 1))
     return group_ids(None, same, live_s, perm, capacity, with_rep)
+
+
+def assign_groups(norm_bits, null_flags, live: torch.Tensor, capacity: int,
+                  widths=None):
+    """(group, owner), the JAX package's ``assign_groups`` over
+    ``group_by``: ``group[i]`` is row i's dense id in key order
+    (``capacity`` for dead rows and rows beyond ``capacity`` groups),
+    ``owner[s]`` group s's representative row (n when unused). Keys come
+    normalized with their null flags (None: no NULLs)."""
+    cols = [
+        (b, None if f is None else ~f) for b, f in zip(norm_bits, null_flags)
+    ]
+    info = group_by(cols, live, capacity, widths)
+    return info.group, info.owner
 
 
 def _word_layout(needs):
@@ -1854,6 +1880,184 @@ def quant_merge(states: torch.Tensor, eff: torch.Tensor,
 
 quant_merge.launches = 0
 
+# ---- the mesh: exchange packing and scatter reductions ---------------------
+
+
+def umod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """The unsigned residue ``h mod n`` of u64 bits carried in int64 (the
+    JAX package's ``h % jnp.uint64(n)``), as int64 in [0, n). torch's
+    ``%`` is signed: a hash with bit 63 set would land elsewhere."""
+    return (_shr(h, 1) % n * 2 + (h & 1)) % n
+
+
+def _segment_identity(op: str, dtype: torch.dtype):
+    """The value an empty slot holds: 0, or the dtype's extreme (+-inf
+    for floats) that a min or max leaves alone."""
+    if op == "sum":
+        return 0
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def _f64_order_key(x: torch.Tensor) -> torch.Tensor:
+    """float64 bits -> signed total-order key (-0.0 < +0.0); the map is
+    its own inverse on non-NaN bits."""
+    b = x.contiguous().view(I64)
+    return torch.where(b >= 0, b, b ^ ((1 << 63) - 1))
+
+
+def segment_reduce_plain(vals: torch.Tensor, group: torch.Tensor,
+                         num_segments: int, op: str) -> torch.Tensor:
+    """Plain torch version of M2 (``kernels.py:seg_sum``/``seg_min``/
+    ``seg_max``): ``op`` in sum, min, max of ``vals`` by ``group`` into
+    ``num_segments`` slots; ids outside [0, num_segments) drop and an
+    empty slot holds the identity. float64 min/max reduce the total-order
+    key of the bits, so -0.0 < +0.0 and a NaN makes its slot NaN (the
+    canonical quiet NaN), as XLA's min/max do."""
+    keep = (group >= 0) & (group < num_segments)
+    g = group[keep].to(I64)
+    v = vals[keep]
+    if op == "sum":
+        out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
+        return out.index_add_(0, g, v)
+    reduce = "amin" if op == "min" else "amax"
+    if vals.dtype != torch.float64:
+        out = torch.full((num_segments,), _segment_identity(op, vals.dtype),
+                         dtype=vals.dtype, device=vals.device)
+        return out.scatter_reduce_(0, g, v, reduce, include_self=True)
+    ident = _f64_order_key(torch.tensor(
+        [_segment_identity(op, vals.dtype)], dtype=torch.float64,
+        device=vals.device))
+    nan_key = (-(1 << 63)) if op == "min" else (1 << 63) - 1
+    key = torch.where(torch.isnan(v), torch.full(v.shape, nan_key, dtype=I64,
+                                                 device=v.device),
+                      _f64_order_key(v))
+    out = ident.expand(num_segments).clone()
+    out.scatter_reduce_(0, g, key, reduce, include_self=True)
+    res = _f64_order_key(out.view(torch.float64)).view(torch.float64)
+    return torch.where(torch.isnan(res), torch.full_like(res, float("nan")), res)
+
+
+_SEGMENT_OPS = {"sum": 0, "min": 1, "max": 2}
+
+
+def segment_reduce(vals: torch.Tensor, group: torch.Tensor,
+                   num_segments: int, op: str) -> torch.Tensor:
+    """M2 wrapper: scatter reduction ``op`` (sum, min or max) of int64 or
+    float64 ``vals`` by int32 or int64 ``group`` into ``num_segments``
+    slots; out-of-range ids drop, empty slots hold the identity. Plain
+    version on the CPU, CUDA kernel (``csrc/segment_reduce.cu``) on the
+    card."""
+    if op not in _SEGMENT_OPS:
+        raise ValueError(f"segment_reduce: op must be sum, min or max: {op}")
+    if _on_cpu(vals, group):
+        return segment_reduce_plain(vals, group, num_segments, op)
+    if vals.dtype not in (I64, torch.float64):
+        raise TypeError(f"segment_reduce: int64 or float64 values, got {vals.dtype}")
+    if group.dtype not in (I64, torch.int32):
+        raise TypeError(f"segment_reduce: int32 or int64 ids, got {group.dtype}")
+    n = vals.shape[0]
+    _check("segment_reduce.vals", vals, vals.dtype, n)
+    _check("segment_reduce.group", group, group.dtype, n)
+    out = torch.empty(num_segments, dtype=vals.dtype, device=vals.device)
+    native.call(
+        "segment_reduce", "segment_reduce_launch", vals, group, n,
+        num_segments, int(vals.dtype == torch.float64), int(group.dtype == I64),
+        _SEGMENT_OPS[op], out,
+    )
+    segment_reduce.launches += 1
+    return out
+
+
+segment_reduce.launches = 0
+
+
+def partition_pack_plain(dest: torch.Tensor, live: torch.Tensor, payload,
+                         n_parts: int, bucket: int):
+    """Plain torch version of M1 (``parallel/exchange.py:
+    partition_exchange`` before its all_to_all): the JAX one-hot cumsum
+    rank. Returns (buckets: one [n_parts * bucket, ...] tensor per payload
+    column, sent_live [n_parts * bucket] bool, counts [n_parts] int64)."""
+    dev = dest.device
+    d = dest.to(I64)
+    valid = live & (d >= 0) & (d < n_parts)
+    dc = d.clamp(0, n_parts - 1)
+    # [n_parts, n]: each destination's one-hot row, scanned along rows
+    oh = ((torch.arange(n_parts, device=dev)[:, None] == dc[None, :])
+          & valid[None, :]).to(I64)
+    rank = torch.cumsum(oh, 1) - oh
+    pos = torch.gather(rank, 0, dc[None, :])[0]
+    counts = oh.sum(1)
+    in_range = valid & (pos < bucket)
+    total = n_parts * bucket
+    flat = torch.where(in_range, dc * bucket + pos, torch.full_like(pos, total))
+    buckets = []
+    for arr in payload:
+        out = torch.zeros((total + 1,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                          device=dev)
+        out[flat] = arr
+        buckets.append(out[:total])
+    sent = torch.zeros(total + 1, dtype=torch.bool, device=dev)
+    sent[flat] = True
+    return buckets, sent[:total], counts
+
+
+#: payload columns one M1 launch writes (MAX_COLS in csrc/partition_pack.cu)
+PACK_MAX_COLS = 32
+#: rows a block of M1 covers (TILE in csrc/partition_pack.cu)
+PACK_TILE = 2048
+
+
+def partition_pack(dest: torch.Tensor, live: torch.Tensor, payload,
+                   n_parts: int, bucket: int):
+    """M1 wrapper: a shard's live rows packed stably by ``dest`` into
+    ``n_parts`` buckets of ``bucket`` slots (row order within a bucket,
+    overflowing rows dropped): (buckets, sent_live, counts) as
+    ``partition_pack_plain``. Plain version on the CPU, CUDA kernel
+    (``csrc/partition_pack.cu``) on the card: one wrapper call is one
+    launch (its count, scan and scatter passes; a further scatter pass
+    per ``PACK_MAX_COLS`` payload columns)."""
+    if _on_cpu(dest, live, *payload):
+        return partition_pack_plain(dest, live, payload, n_parts, bucket)
+    if not 1 <= n_parts <= 64:
+        raise ValueError(f"partition_pack: 1 to 64 destinations, got {n_parts}")
+    n = dest.shape[0]
+    dev = dest.device
+    dest32 = dest.to(torch.int32).contiguous()
+    _check("partition_pack.live", live, torch.bool, n)
+    total = n_parts * bucket
+    # contiguous copies stay alive in ``cols`` while the kernel reads them
+    cols = [arr.contiguous() for arr in payload]
+    buckets, desc = [], []
+    for i, arr in enumerate(cols):
+        if arr.shape[0] != n:
+            raise ValueError(f"partition_pack: payload {i} has {arr.shape[0]} rows, not {n}")
+        width = arr.element_size() * math.prod(arr.shape[1:])
+        if width not in (1, 2, 4, 8, 16):
+            raise TypeError(f"partition_pack: payload {i} rows of {width} bytes")
+        out = torch.zeros((total,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                          device=dev)
+        buckets.append(out)
+        desc.append([arr.data_ptr(), out.data_ptr(), width])
+    sent = torch.zeros(total, dtype=torch.bool, device=dev)
+    counts = torch.empty(n_parts, dtype=I64, device=dev)
+    scratch = torch.empty(max(-(-n // PACK_TILE), 1) * n_parts, dtype=I64,
+                          device=dev)
+    batches = [desc[i: i + PACK_MAX_COLS]
+               for i in range(0, len(desc), PACK_MAX_COLS)] or [[]]
+    for batch in batches:
+        table = _host_table(batch) if batch else torch.zeros((0, 3), dtype=I64)
+        native.call("partition_pack", "partition_pack_launch", dest32, live, n,
+                    n_parts, bucket, scratch, counts, table, len(batch), sent)
+    partition_pack.launches += 1
+    return buckets, sent, counts
+
+
+partition_pack.launches = 0
+
+
 #: the wrappers whose kernels the main path must launch
 KERNELS = {
     "group_ids": group_ids,
@@ -1876,6 +2080,8 @@ KERNELS = {
     "hll_merge": hll_merge,
     "quant_summary": quant_summary,
     "quant_merge": quant_merge,
+    "partition_pack": partition_pack,
+    "segment_reduce": segment_reduce,
 }
 
 

@@ -47,6 +47,8 @@ SOURCES = {
     "hll_merge": "hll_merge.cu",
     "quant_summary": "quant_summary.cu",
     "quant_merge": "quant_merge.cu",
+    "partition_pack": "partition_pack.cu",
+    "segment_reduce": "segment_reduce.cu",
 }
 
 NVCC_FLAGS = [

@@ -1,5 +1,5 @@
-"""Canonical capacity buckets — the port of ``bucket`` and
-``table_bucket`` from ``trino_tpu/exec/shapes.py``.
+"""Canonical capacity buckets — the port of ``bucket``, ``table_bucket``
+and ``exchange_bucket`` from ``trino_tpu/exec/shapes.py``.
 
 Every operator capacity (scan pages, aggregate slot tables, join
 outputs, TopN caps) quantizes onto the power-of-two / 1.5x-power-of-two
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from trino_tpu_torch.page import pad_capacity
 
-__all__ = ["bucket", "table_bucket", "TABLE_FLOOR"]
+__all__ = ["bucket", "table_bucket", "exchange_bucket", "TABLE_FLOOR"]
 
 #: the minimum aggregate-table bucket
 TABLE_FLOOR = 1024
@@ -29,3 +29,11 @@ def table_bucket(est: float, max_cap: int) -> int:
     count: 1.25x margin + floor, quantized onto the bucket family."""
     want = max(int(est * 1.25) + TABLE_FLOOR, TABLE_FLOOR)
     return min(bucket(want), max_cap) if max_cap else bucket(want)
+
+
+def exchange_bucket(shard_cap: int, n_shards: int) -> int:
+    """Canonical per-destination bucket capacity of the mesh exchange (2x
+    mean occupancy margin, >= 128, capped at the shard capacity so
+    escalation always terminates)."""
+    want = max(2 * shard_cap // max(n_shards, 1), 128)
+    return min(bucket(want), shard_cap)
