@@ -17,11 +17,12 @@ Run from the repository root, with no arguments:
    the main path's
    shapes (TPC-H SF10 scale: 60M rows with 4 and with 1.5M groups, and 8M
    partsupp rows in 2M groups; a 15M-row build side against a 60M-row
-   probe; 15M probe rows of 1-7 matches each, ~60M expanded positions,
-   also with one hot probe row owning 10% of them; 60M indices into 15M
-   slots; 60M rows of two and of three join-key parts; 60M rows of one
-   and of three GROUP BY keys to pack; 15M orders rows of two ORDER BY
-   keys. TPC-DS SF10 scale: 28.8M store_sales rows in 120 store
+   probe, also with uniform u64 keys, with one build key on 30% of the
+   build rows and with the probes in key order; 15M probe rows of 1-7
+   matches each, ~60M expanded positions, also with one hot probe row
+   owning 10% of them; 60M indices into 15M slots; 60M rows of two and
+   of three join-key parts; 60M rows of one and of three GROUP BY keys to
+   pack; 15M orders rows of two ORDER BY keys. TPC-DS SF10 scale: 28.8M store_sales rows in 120 store
    partitions under a RANGE 6 preceding frame, also with a float64 key
    and values holding NaN, -0.0 and a partition of 1e18s; q51's 5.5M rows
    in 180K item partitions of decimal(38,2) limbs; 28.8M store_sales rows
@@ -48,8 +49,11 @@ Run from the repository root, with no arguments:
    the least time the card could take (bytes each input read once and
    each output written once, over 3.35 TB/s of HBM; K5 counts the
    out_live bytes up to each range's first live position, where its scan
-   stops). Beside K1's Q1 case, ``stage._presort_shared``'s stacked
-   gather of five int64 columns is timed against one gather per column,
+   stops). Beside each K1 case a bare ``group[perm] = gid_sorted``
+   (``index_put_``) is timed: the inverse permutation's store alone,
+   part of K1's work; beside K1's Q1 case, ``stage._presort_shared``'s
+   stacked gather of five int64 columns is timed against one gather per
+   column,
    and ``kernels.count_true`` (a torch sum) over a 60M-row mask.
 4. Main path, TPC-H: ``QueryRunner.tpch("sf1")`` on cuda runs TPC-H Q1,
    Q3, Q18, Q4, Q17, Q21, a full outer join and Q2, Q9, Q11, Q13, Q14,
@@ -208,6 +212,9 @@ def group_case(torch, np, K, shapes, dev, n_groups: int, rows: int = LINEITEM_RO
 
 
 def k1_phase(torch, K, ps, live_s, perm, capacity) -> tuple[dict, tuple]:
+    """K1 against its plain version, beside a bare ``group[perm] =
+    gid_sorted`` (``index_put_``): the inverse permutation's scattered
+    store alone, part of K1's work."""
     n = ps.shape[0]
     got = K.group_ids(ps, None, live_s, perm, capacity, with_rep=True)
     want = K.group_ids_plain(ps, None, live_s, perm, capacity, with_rep=True)
@@ -220,7 +227,10 @@ def k1_phase(torch, K, ps, live_s, perm, capacity) -> tuple[dict, tuple]:
         fail("group_ids: rep does not mark one row per group")
     n_live = int(live_s.sum())
     live_words = ps[:n_live]
+    group = torch.empty_like(got.gid_sorted)
     return {
+        "scatter_ms": timed_ms(
+            torch, lambda: group.index_put_((perm,), got.gid_sorted)),
         "max_abs_err": 0,
         "ms": timed_ms(torch, lambda: K.group_ids(ps, None, live_s, perm, capacity)),
         "plain_ms": timed_ms(torch, lambda: K.group_ids_plain(ps, None, live_s, perm, capacity)),
@@ -302,21 +312,37 @@ def presort_phase(torch, np, perm) -> dict:
     }
 
 
-def join_case(torch, np, K, dev):
+#: K3's cases besides Q3's: uniform u64 keys (multi-column keys after
+#: K7's hash; bit 63 set on half), one build key on 30% of the build rows,
+#: and the probes in key order (lineitem's l_orderkey order)
+JOIN_KINDS = ("hashed", "hot", "sorted")
+
+
+def join_case(torch, np, K, dev, kind: str = "q3"):
     """Q3-like join inputs: 15M build keys (sparse order keys, 1%
     duplicated, ~half dead after the date filter) against 60M probe keys
-    (~half dead, 2% without a match)."""
+    (~half dead, 2% without a match), in probe order random; or one of
+    ``JOIN_KINDS`` built the same way from other build keys or with the
+    probes sorted."""
     rng = np.random.default_rng(SEED + 3)
+    other = np.random.default_rng(SEED + 33)
     m, n = ORDERS_ROWS, LINEITEM_ROWS
     build = np.arange(m, dtype=np.int64) * 4 + 1
+    if kind == "hashed":
+        build = other.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                               size=m, dtype=np.int64, endpoint=True)
     dup = rng.integers(0, m, size=m // 100)
     build[rng.integers(0, m, size=m // 100)] = build[dup]
+    if kind == "hot":
+        build[other.random(m) < 0.3] = build[m // 2]
     build = build[rng.permutation(m)]
     probe = build[rng.integers(0, m, size=n)]
     probe[rng.random(n) < 0.02] += 2  # keys no build row has
     bk = torch.from_numpy(build).to(dev)
     bl = torch.from_numpy(rng.random(m) >= 0.5).to(dev)
     pk = torch.from_numpy(probe).to(dev)
+    if kind == "sorted":
+        pk = torch.sort(pk).values
     pl = torch.from_numpy(rng.random(n) >= 0.46).to(dev)
     o1 = K._argsort_u64(bk)
     order = o1[K._argsort_flag((~bl)[o1])]
@@ -331,8 +357,8 @@ def k3_phase(torch, K, order, sorted_key, nbl, pk, pl) -> tuple[dict, tuple]:
     torch.cuda.synchronize()
     if not (same(torch, lo, lo_p) and same(torch, cnt, cnt_p)):
         fail("join_probe differs from the plain version")
-    m, n = sorted_key.shape[0], pk.shape[0]
-    live_keys = (sorted_key[: int(nbl)] ^ K._SIGN).contiguous()
+    n, n_live = pk.shape[0], int(nbl)
+    live_keys = (sorted_key[:n_live] ^ K._SIGN).contiguous()
     pkf = (pk ^ K._SIGN).contiguous()
 
     def library():
@@ -345,9 +371,11 @@ def k3_phase(torch, K, order, sorted_key, nbl, pk, pl) -> tuple[dict, tuple]:
         "ms": timed_ms(torch, lambda: K.join_probe(sorted_key, nbl, pk, pl)),
         "plain_ms": timed_ms(torch, lambda: K.join_probe_plain(sorted_key, nbl, pk, pl)),
         "library_ms": timed_ms(torch, library),
-        # probe keys (8 B) + flags (1 B) and build keys (8 B) in; lo, cnt out
-        "bound_ms": bound_ms(n * 9 + m * 8 + 8 + n * 16),
-        "build_rows": m, "probe_rows": n, "build_live": int(nbl),
+        # probe keys (8 B) + flags (1 B), the live build keys (8 B; the
+        # dead tail is never read) and n_build_live in; lo, cnt out
+        "bound_ms": bound_ms(n * 9 + n_live * 8 + 8 + n * 16),
+        "build_rows": sorted_key.shape[0], "probe_rows": n,
+        "build_live": n_live,
     }, (lo, cnt)
 
 
@@ -1928,6 +1956,10 @@ def main() -> int:
     k3, (lo, cnt) = k3_phase(torch, K, order, sorted_key, nbl, pk, pl)
     k4 = k4_phase(torch, K, shapes, order, lo, cnt)
     del order, sorted_key, nbl, pk, pl, lo, cnt
+    k3_kinds = {}
+    for kind in JOIN_KINDS:
+        k3_kinds[kind], _ = k3_phase(torch, K, *join_case(torch, np, K, dev, kind))
+    torch.cuda.empty_cache()
     cnt, out_live = range_any_case(torch, np, dev, hot=False)
     k5 = k5_phase(torch, K, cnt, out_live)
     cnt, out_live = range_any_case(torch, np, dev, hot=True)
@@ -2003,7 +2035,12 @@ def main() -> int:
                               cases=[dict(k2_q3, case=f"{rows}, 1.5M groups, int64"),
                                      dict(k2_q1f, case=f"{rows}, 4 groups, float64"),
                                      dict(k2_q3f, case=f"{rows}, 1.5M groups, float64")])
-    entries["join_probe"] = dict(k3, case=join)
+    entries["join_probe"] = dict(k3, case=join, cases=[
+        dict(k3_kinds["hashed"], case=f"{join}, uniform u64 keys (hashed, "
+             "bit 63 on half)"),
+        dict(k3_kinds["hot"], case=f"{join}, one build key on 30% of the "
+             "build rows"),
+        dict(k3_kinds["sorted"], case=f"{join}, probes in key order")])
     entries["expand_matches"] = dict(k4, case=join)
     expand = f"{ORDERS_ROWS / 1e6:g}M probe rows of 1-7 matches"
     entries["range_any"] = dict(
@@ -2159,10 +2196,12 @@ def main() -> int:
             "cases": [
                 {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "library_ms", "rep_ms",
-                                   "segment_reduce_ms") if k in c}
+                                   "segment_reduce_ms", "scatter_ms")
+                 if k in c}
                 for c in e.get("cases", [])
             ],
-            **{k: e[k] for k in ("sort_perm_ms", "rep_ms") if k in e},
+            **{k: e[k] for k in ("sort_perm_ms", "rep_ms", "scatter_ms")
+               if k in e},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_join_keys import KEY_SETS, join_key_set
 from trino_tpu_torch.exec import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -40,17 +41,23 @@ def _assert_info_equal(a, b):
         assert x is None or torch.equal(x.cpu(), y.cpu()), name
 
 
-@pytest.mark.parametrize("n,n_keys,capacity,widths", [
-    (0, 1, 8, (8,)),
-    (1, 1, 8, (8,)),
-    (7, 3, 8, None),
-    (5000, 4, 1024, (3,)),          # Q1-like: few groups, packed hot path
-    (5000, 3000, 1024, (12,)),      # overflow: num_groups > capacity
-    (100_000, 40_000, 65536, None),  # unpacked path, many groups
-    (300_000, 250_000, 393216, (63,)),  # liveness folded into bit 63
+@pytest.mark.parametrize("n,n_keys,capacity,widths,dead", [
+    (0, 1, 8, (8,), 0.3),
+    (1, 1, 8, (8,), 0.3),
+    (7, 3, 8, None, 0.3),
+    (5000, 4, 1024, (3,), 0.3),          # Q1-like: few groups, packed hot path
+    (5000, 3000, 1024, (12,), 0.3),      # overflow: num_groups > capacity
+    (100_000, 40_000, 65536, None, 0.3),  # unpacked path, many groups
+    (300_000, 250_000, 393216, (63,), 0.3),  # liveness folded into bit 63
+    # ~2,400 tiles of 2048 rows: the look-back crosses many tiles
+    (5_000_000, 1_500_000, 2_097_152, (21,), 0.03),
+    (5_000_000, 4, 16, (3,), 0.03),
+    (200_000, 150_000, 65536, (18,), 0.3),  # overflow across ~100 tiles
+    (50_000, 100, 128, (7,), 1.0),        # every row dead
+    (50_000, 100, 128, None, 1.0),        # every row dead, unpacked
 ])
-def test_group_ids_kernel(cuda, n, n_keys, capacity, widths):
-    keys, live = _group_inputs(n, n_keys, 0.3, seed=n + n_keys)
+def test_group_ids_kernel(cuda, n, n_keys, capacity, widths, dead):
+    keys, live = _group_inputs(n, n_keys, dead, seed=n + n_keys)
     if widths == (63,):
         keys = keys | (1 << 62)  # exercise the top key bit
     cpu_bits = (torch.from_numpy(keys),)
@@ -98,22 +105,31 @@ def test_seg_sum_kernel(cuda, n, n_keys, dtype):
         assert torch.allclose(got.cpu(), want, rtol=1e-12, atol=1e-6)
 
 
-@pytest.mark.parametrize("m,n,n_keys,high_bit,build_dead", [
-    (0, 5, 4, False, 0.0),
-    (64, 0, 4, False, 0.0),
-    (64, 100, 10, True, 1.0),        # all-dead build side
-    (20_000, 80_000, 30_000, True, 0.2),
-    (150_000, 600_000, 150_000, False, 0.1),
+@pytest.mark.parametrize("keys,m,n", [
+    ((4, False, 0.0), 0, 5),
+    ((4, False, 0.0), 64, 0),
+    ((10, True, 1.0), 64, 100),        # all-dead build side
+    ((30_000, True, 0.2), 20_000, 80_000),
+    ((150_000, False, 0.1), 150_000, 600_000),
+    # K3's adversarial key sets (test_torch_join_keys.py): an outlier that
+    # degenerates the key-range directory, a hot key, hashed u64 keys,
+    # probes all outside the build range, one live build row, sorted probes
+    *[(name, m, n) for name in KEY_SETS
+      for m, n in ((3000, 4000), (400_000, 1_600_000))],
 ])
-def test_join_kernels(cuda, m, n, n_keys, high_bit, build_dead):
-    rng = np.random.default_rng(m + n)
-    bk = rng.integers(0, n_keys, size=m).astype(np.int64)
-    pk = rng.integers(0, n_keys, size=n).astype(np.int64)
-    if high_bit:
-        bk = bk | np.int64(-(1 << 63))
-        pk = pk | np.int64(-(1 << 63))
-    bl = rng.random(m) >= build_dead
-    pl = rng.random(n) >= 0.1
+def test_join_kernels(cuda, keys, m, n):
+    if isinstance(keys, str):
+        bk, bl, pk, pl = join_key_set(keys, m, n, seed=m + n)
+    else:
+        n_keys, high_bit, build_dead = keys
+        rng = np.random.default_rng(m + n)
+        bk = rng.integers(0, n_keys, size=m).astype(np.int64)
+        pk = rng.integers(0, n_keys, size=n).astype(np.int64)
+        if high_bit:
+            bk = bk | np.int64(-(1 << 63))
+            pk = pk | np.int64(-(1 << 63))
+        bl = rng.random(m) >= build_dead
+        pl = rng.random(n) >= 0.1
     args = [torch.from_numpy(x) for x in (bk, bl, pk, pl)]
     order, lo, cnt = K.join_ranges(*args)
     K.join_probe.launches = K.expand_matches.launches = 0

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_join_keys import KEY_SETS, join_key_set
 from trino_tpu.exec import kernels as JK
 from trino_tpu_torch.exec import kernels as TK
 
@@ -166,6 +167,8 @@ def test_seg_sum_ranges_matches_jax(dtype, n):
 
 
 def _join_case(case, m, n, seed):
+    if case in KEY_SETS:
+        return join_key_set(case, m, n, seed)
     rng = np.random.default_rng(seed)
     hi = 30
     bk = rng.integers(0, hi, size=m).astype(np.int64)
@@ -182,6 +185,9 @@ def _join_case(case, m, n, seed):
 JOIN_CASES = [
     ("dups", 4096, 4096), ("u64_high", 4096, 1000), ("all_dead_build", 64, 100),
     ("dups", 7, 0), ("dups", 0, 7), ("dups", 1, 1), ("u64_high", 7, 7),
+    # the adversarial key sets of K3's key-range directory
+    ("outlier", 3000, 4000), ("hot", 3000, 4000), ("hashed", 3000, 4000),
+    ("outside", 3000, 2000), ("one_live", 3000, 4000), ("sorted", 3000, 4000),
 ]
 
 

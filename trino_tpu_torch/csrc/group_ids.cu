@@ -7,26 +7,47 @@
 // trino_tpu/exec/stage.py:_dedupe (:504), owner[group[i]] == i for a live
 // row i, written as `rep` in the pass that writes group when the caller
 // asks for it (a DISTINCT's dedupe does; a GROUP BY does not pay for the
-// second scattered store). The packing of
-// the keys is K8 pack_words; the stable sort stays torch.sort, as the JAX
-// package leaves lax.sort to XLA.
+// second scattered store). The packing of the keys is K8 pack_words; the
+// stable sort stays torch.sort, as the JAX package leaves lax.sort to XLA.
 //
 // Bound on an H100 (3.35 TB/s): per row it must read the sorted word or
 // the `same` flag (8 or 1 B), live_s (1 B) and perm (8 B) and write
 // gid_sorted and group (8 B each) and rep (1 B, when asked for), plus
-// 3 x 8 B per capacity slot: about 33-34 B/row, so ~0.06 ms at 6M rows and ~0.6 ms at
-// 60M rows. Bytes, not operations, bound it.
+// 3 x 8 B per capacity slot: about 33-34 B/row, so ~0.06 ms at 6M rows
+// and ~0.6 ms at 60M rows. Bytes, not operations, bound it. What holds
+// it back is the inverse permutation, group[perm[p]] = gid_sorted[p]
+// (the JAX package pays it as an argsort and a gather): stored straight
+// from sorted order, every 8-byte store is a partial 32-byte sector of a
+// row far from its neighbours', which the card writes back by reading
+// the sector first. A bare index_put_ of it takes longer than all the
+// rest of K1 (chip_smoke.py's `scatter_ms`).
 //
-// Design: a two-level scan. Pass 1 gives each block a tile of
-// THREADS*ITEMS rows, marks boundaries, scans them within the block and
-// writes the tile's running count plus the tile total. Pass 2 (one
-// block) turns tile totals into tile offsets and num_groups. Pass 3
-// adds the offset, writes gid_sorted, scatters group[perm[p]] (the
-// inverse permutation of a sort is a plain scatter here, not a second
-// sort), marks the row at each group's first position as its
-// representative and records that position. Pass 4 runs over the
-// capacity slots: unused slots start at n_live, ends are the next
-// start, owner is perm[start]. Ids are int64 (the port's index type).
+// Design: a single-pass scan with decoupled look-back, fused with the
+// assignment, and the inverse permutation in two steps that store whole
+// sectors.
+// 1. `scan_assign`: each block takes the next tile id from a counter, so
+//    tiles start in order and a block only ever waits on tiles whose
+//    blocks are already running (no deadlock). A tile is THREADS*ITEMS
+//    rows read in stripes of THREADS consecutive rows (coalesced); the
+//    words go to shared memory with the row before the tile (read once
+//    per tile), boundaries become one warp ballot per stripe, and the
+//    64 per-warp popcounts are scanned by one warp. That warp publishes
+//    the tile's count and then its inclusive prefix as status-tagged
+//    64-bit words and looks back over its predecessors 32 at a time for
+//    its exclusive prefix. In the same pass the block writes gid_sorted,
+//    starts[g] at each group's first position and n_live at the first
+//    position at capacity; the last tile writes num_groups. Each row's
+//    (id, rep flag, row in its window) goes as one 8-byte word into the
+//    region of its row window (as many slots as the window has rows), at a
+//    slot that one atomic per window and warp reserves: consecutive
+//    slots, so the stores fill whole sectors while the few open sectors
+//    of each window sit in L2.
+// 2. `windows`: one block per row window unpacks its words in shared
+//    memory and writes group (and rep) in row order, coalesced.
+// 3. `slots`: unused slots start at n_live, ends are the next start,
+//    owner is perm[start].
+// No per-row count is written and read back, and no single block walks
+// the tile totals. Ids are int64 (the port's index type).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -34,88 +55,206 @@
 namespace {
 
 using ttk::THREADS;
+using ttk::WARPS;
+using ttk::u64;
 constexpr int ITEMS = 8;
-constexpr long long TILE = (long long)THREADS * ITEMS;
+constexpr int TILE = THREADS * ITEMS;
+constexpr unsigned FULL = 0xffffffffu;
+// Rows per window of the inverse permutation's two-step scatter: 2^9 to
+// 2^12, the least that keeps n / window under WINDOWS windows. A random
+// permutation makes one atomic per row on its window's fill count, and
+// the atomics on one count run one after another: small windows spread
+// them over more counts, large ones keep fewer open sectors in L2 (on an
+// H100 2^9 was the fastest at 8M rows in 2M groups, 2^12 at 60M rows in
+// 1.5M groups).
+constexpr int MIN_WINDOW_BITS = 9;
+constexpr int MAX_WINDOW_BITS = 12;
+constexpr long long WINDOWS = 1 << 14;
+static_assert(ITEMS * WARPS == 64, "one warp scans two counts per lane");
 
-__device__ __forceinline__ int boundary(long long p, const long long* words,
-                                        const unsigned char* same,
-                                        const unsigned char* live) {
-  if (!live[p]) return 0;
-  if (p == 0) return 1;
-  if (words != nullptr) return words[p] != words[p - 1] ? 1 : 0;
-  return same[p] ? 0 : 1;
-}
+// A tile's published word: status in the top two bits, a count below.
+constexpr u64 ST_AGGREGATE = 1ull << 62;
+constexpr u64 ST_INCLUSIVE = 2ull << 62;
+constexpr u64 VALUE = (1ull << 62) - 1;
 
-__global__ void tile_scan(const long long* words, const unsigned char* same,
-                          const unsigned char* live, long long n,
-                          long long* gid1, long long* tile_sums) {
-  const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  int flags[ITEMS];
-  long long local = 0;
+// Exclusive prefix of tile `tile` whose own count is `agg`, by decoupled
+// look-back over the tiles before it; called by the 32 lanes of one warp.
+// Publishes the tile's inclusive prefix.
+__device__ long long look_back(volatile u64* state, long long tile, long long agg) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) state[0] = ST_INCLUSIVE | (u64)agg;
+    return 0;
+  }
+  if (lane == 0) state[tile] = ST_AGGREGATE | (u64)agg;
+  long long excl = 0;
+  long long last = tile - 1;  // lane j reads tile last - j
+  for (;;) {
+    const long long at = last - lane;
+    u64 word = ST_INCLUSIVE;  // before tile 0: an inclusive prefix of 0
+    if (at >= 0) word = state[at];
+    const unsigned inclusive = __ballot_sync(FULL, (word >> 62) == 2);
+    const unsigned unset = __ballot_sync(FULL, (word >> 62) == 0);
+    // lanes up to the nearest inclusive prefix (all lanes if none)
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    const unsigned needed = (2u << stop) - 1u;
+    if (unset & needed) continue;  // a predecessor has not published yet
+    long long v = lane <= stop ? (long long)(word & VALUE) : 0;
 #pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long p = base + i;
-    flags[i] = p < n ? boundary(p, words, same, live) : 0;
-    local += flags[i];
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(FULL, v, d);
+    excl += __shfl_sync(FULL, v, 0);
+    if (inclusive) break;
+    last -= 32;
   }
-  long long total;
-  const long long incl = ttk::block_inclusive_scan<long long>(local, &total);
-  long long run = incl - local;
+  if (lane == 0) state[tile] = ST_INCLUSIVE | (u64)(excl + agg);
+  return excl;
+}
+
+__global__ void __launch_bounds__(THREADS) scan_assign(
+    const long long* __restrict__ words, const unsigned char* __restrict__ same,
+    const unsigned char* __restrict__ live, const long long* __restrict__ perm,
+    long long n, long long capacity, u64* state, unsigned int* next_tile,
+    unsigned int* __restrict__ fill, int window_bits,
+    long long* __restrict__ gid_sorted,
+    u64* __restrict__ staged, long long* __restrict__ starts,
+    long long* __restrict__ num_groups, long long* __restrict__ n_live) {
+  __shared__ long long buf[TILE];  // the tile's words, then its ids
+  __shared__ unsigned int pre[ITEMS * WARPS];  // per (stripe, warp) counts
+  __shared__ long long tile_s, excl_s, before_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) tile_s = atomicAdd(next_tile, 1u);
+  __syncthreads();
+  const long long tile = tile_s;
+  const long long base = tile * TILE;
+
+  // 1. boundary flags, one ballot per warp and stripe
+  if (words != nullptr) {
 #pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long p = base + i;
-    run += flags[i];
-    if (p < n) gid1[p] = run;
-  }
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
-}
-
-// One block: exclusive scan of the tile totals in place; num_groups.
-__global__ void scan_tiles(long long* tile_sums, long long num_tiles,
-                           long long* num_groups) {
-  long long carry = 0;
-  for (long long c = 0; c < num_tiles; c += THREADS) {
-    const long long i = c + threadIdx.x;
-    const long long v = i < num_tiles ? tile_sums[i] : 0;
-    long long total;
-    const long long incl = ttk::block_inclusive_scan<long long>(v, &total);
-    if (i < num_tiles) tile_sums[i] = carry + incl - v;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *num_groups = carry;
-}
-
-__device__ __forceinline__ long long gid_at(long long q, const long long* gid1,
-                                            const long long* tile_off,
-                                            const unsigned char* live,
-                                            long long capacity) {
-  if (!live[q]) return capacity;
-  const long long g = gid1[q] + tile_off[q / TILE] - 1;
-  return g < capacity ? g : capacity;
-}
-
-__global__ void assign(const long long* gid1, const long long* tile_off,
-                       const unsigned char* live, const long long* perm,
-                       long long n, long long capacity, long long* gid_sorted,
-                       long long* group, unsigned char* rep, long long* starts,
-                       long long* n_live) {
-  const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= n) return;
-  const long long g = gid_at(p, gid1, tile_off, live, capacity);
-  gid_sorted[p] = g;
-  const long long row = perm[p];
-  group[row] = g;
-  const long long prev = p > 0 ? gid_at(p - 1, gid1, tile_off, live, capacity) : -1;
-  // the representative of a group is the row at its first sorted position
-  if (rep != nullptr) rep[row] = (g != prev && g < capacity) ? 1 : 0;
-  if (g != prev) {
-    // gid_sorted is non-decreasing: each id < capacity starts once, and
-    // the first position at capacity (dead or overflow rows) is unique
-    if (g < capacity) {
-      starts[g] = p;
-    } else {
-      *n_live = p;
+    for (int i = 0; i < ITEMS; ++i) {
+      const long long p = base + i * THREADS + t;
+      buf[i * THREADS + t] = p < n ? words[p] : 0;
     }
+    if (t == 0) before_s = base > 0 ? words[base - 1] : 0;
+    __syncthreads();
+  }
+  bool lv[ITEMS];
+  unsigned int mask[ITEMS];
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int l = i * THREADS + t;
+    const long long p = base + l;
+    lv[i] = p < n && live[p];
+    bool flag = false;
+    if (lv[i]) {
+      if (p == 0) {
+        flag = true;
+      } else if (words != nullptr) {
+        flag = buf[l] != (l > 0 ? buf[l - 1] : before_s);
+      } else {
+        flag = !same[p];
+      }
+    }
+    mask[i] = __ballot_sync(FULL, flag);
+    if (lane == 0) pre[i * WARPS + warp] = __popc(mask[i]);
+  }
+  __syncthreads();
+
+  // 2. the tile's count and exclusive prefix (warp 0)
+  if (warp == 0) {
+    const unsigned int a = pre[2 * lane], b = pre[2 * lane + 1];
+    const unsigned int own = a + b;
+    unsigned int incl = own;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned int x = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += x;
+    }
+    pre[2 * lane] = incl - own;
+    pre[2 * lane + 1] = incl - own + a;
+    const long long total = __shfl_sync(FULL, incl, 31);
+    const long long excl = look_back(state, tile, total);
+    if (lane == 0) {
+      excl_s = excl;
+      if (tile == (long long)gridDim.x - 1) *num_groups = excl + total;
+    }
+  }
+  __syncthreads();
+  const long long excl = excl_s;
+
+  // 3. ids: gid_sorted = live ? min(count of boundaries to here - 1,
+  // capacity) : capacity, the plain version's formula
+  long long g[ITEMS];
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const long long count = excl + pre[i * WARPS + warp] +
+                            __popc(mask[i] & ((2u << lane) - 1u));
+    const long long c = count - 1 < capacity ? count - 1 : capacity;
+    g[i] = lv[i] ? c : capacity;
+    buf[i * THREADS + t] = g[i];
+  }
+  long long g_before = capacity;  // the id of the row before the tile
+  if (t == 0 && base > 0 && live[base - 1]) {
+    g_before = excl - 1 < capacity ? excl - 1 : capacity;
+  }
+  __syncthreads();
+
+  // 4. stores; the inverse permutation goes through the row windows
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int l = i * THREADS + t;
+    const long long p = base + l;
+    const bool valid = p < n;
+    const long long row = valid ? perm[p] : -1;
+    const long long window = valid ? row >> window_bits : -1;
+    // one slot reservation per window and warp: the lanes of a warp that
+    // share a window take consecutive slots of its region
+    const unsigned int peers = __match_any_sync(FULL, window);
+    const int leader = __ffs(peers) - 1;
+    unsigned int slot = 0;
+    if (valid && lane == leader) slot = atomicAdd(&fill[window], __popc(peers));
+    slot = __shfl_sync(FULL, slot, leader) + __popc(peers & ((1u << lane) - 1u));
+    if (!valid) continue;
+    const long long gp = l > 0 ? buf[l - 1] : g_before;
+    const bool first = p == 0 || g[i] != gp;
+    gid_sorted[p] = g[i];
+    // the representative of a group is the row at its first position
+    const u64 is_rep = first && g[i] < capacity ? 1 : 0;
+    staged[(window << window_bits) + slot] =
+        ((u64)g[i] << (window_bits + 1)) | (is_rep << window_bits) |
+        (u64)(row & ((1ll << window_bits) - 1));
+    if (first) {
+      // gid_sorted is non-decreasing: each id < capacity starts once, and
+      // the first position at capacity (dead or overflow rows) is unique
+      if (g[i] >= capacity) {
+        *n_live = p;
+      } else if (g[i] >= 0) {
+        starts[g[i]] = p;
+      }
+    }
+  }
+}
+
+// One block per row window: its staged (id, rep, row) entries, exactly
+// one per row of the window, are unpacked in shared memory and written
+// to group (and rep) in row order.
+__global__ void __launch_bounds__(THREADS) windows(
+    const u64* __restrict__ staged, long long n, int window_bits,
+    long long* __restrict__ group, unsigned char* __restrict__ rep) {
+  __shared__ long long ids[1 << MAX_WINDOW_BITS];
+  __shared__ unsigned char reps[1 << MAX_WINDOW_BITS];
+  const long long window = 1ll << window_bits;
+  const long long r0 = (long long)blockIdx.x * window;
+  const int rows = (int)(n - r0 < window ? n - r0 : window);
+  for (int j = threadIdx.x; j < rows; j += THREADS) {
+    const u64 e = staged[r0 + j];
+    const int at = (int)(e & (window - 1));
+    ids[at] = (long long)e >> (window_bits + 1);  // arithmetic: ids may be < 0
+    reps[at] = (unsigned char)((e >> window_bits) & 1);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < rows; j += THREADS) {
+    group[r0 + j] = ids[j];
+    if (rep != nullptr) rep[r0 + j] = reps[j];
   }
 }
 
@@ -140,32 +279,43 @@ __global__ void slots(long long* starts, long long* ends, long long* owner,
 
 // words: sorted packed key words (or null, then `same` flags are read);
 // live: live_s flags in sorted order; perm: the sort permutation.
-// Scratch: gid1 [n], tile_sums [ceil(n / TILE)]. Outputs: gid_sorted [n],
-// group [n], rep [n] (bool; null when not wanted), starts/ends/owner
-// [capacity], num_groups [1], n_live [1] (n_live must hold n on entry).
-// Returns cudaGetLastError().
+// Scratch: state [ceil(n / 2048) + 1 + ceil(n / 512) / 2 + 1] 64-bit
+// words (reset here), staged [n]. Outputs: gid_sorted [n], group [n],
+// rep [n] (bool; null when not wanted), starts/ends/owner [capacity],
+// num_groups [1], n_live [1] (n_live must hold n on entry). Returns
+// cudaGetLastError().
 extern "C" int group_ids_launch(const void* words, const void* same,
                                 const void* live, const void* perm, long long n,
-                                long long capacity, void* gid1, void* tile_sums,
+                                long long capacity, void* state, void* staged,
                                 void* gid_sorted, void* group, void* rep,
-                                void* starts,
-                                void* ends, void* owner, void* num_groups,
-                                void* n_live, void* stream) {
+                                void* starts, void* ends, void* owner,
+                                void* num_groups, void* n_live, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long num_tiles = (n + TILE - 1) / TILE;
-  if (n > 0) {
-    tile_scan<<<(unsigned int)num_tiles, THREADS, 0, s>>>(
-        (const long long*)words, (const unsigned char*)same,
-        (const unsigned char*)live, n, (long long*)gid1, (long long*)tile_sums);
+  const long long tiles = (n + TILE - 1) / TILE;
+  int window_bits = MIN_WINDOW_BITS;
+  while (window_bits < MAX_WINDOW_BITS && (n >> window_bits) >= WINDOWS) {
+    ++window_bits;
   }
-  scan_tiles<<<1, THREADS, 0, s>>>((long long*)tile_sums, num_tiles,
-                                   (long long*)num_groups);
+  const long long windows_n = (n + (1ll << window_bits) - 1) >> window_bits;
   if (n > 0) {
-    assign<<<ttk::blocks_for(n, THREADS), THREADS, 0, s>>>(
-        (const long long*)gid1, (const long long*)tile_sums,
+    // the tile words, the tile counter, the window fill counts
+    u64* words_at = (u64*)state;
+    unsigned int* counter = (unsigned int*)(words_at + tiles);
+    unsigned int* fill = (unsigned int*)(words_at + tiles + 1);
+    cudaMemsetAsync(state, 0,
+                    (size_t)(tiles + 1) * sizeof(u64) +
+                        (size_t)windows_n * sizeof(unsigned int), s);
+    scan_assign<<<(unsigned int)tiles, THREADS, 0, s>>>(
+        (const long long*)words, (const unsigned char*)same,
         (const unsigned char*)live, (const long long*)perm, n, capacity,
-        (long long*)gid_sorted, (long long*)group, (unsigned char*)rep,
-        (long long*)starts, (long long*)n_live);
+        words_at, counter, fill, window_bits, (long long*)gid_sorted,
+        (u64*)staged,
+        (long long*)starts, (long long*)num_groups, (long long*)n_live);
+    windows<<<(unsigned int)windows_n, THREADS, 0, s>>>(
+        (const u64*)staged, n, window_bits, (long long*)group,
+        (unsigned char*)rep);
+  } else {
+    cudaMemsetAsync(num_groups, 0, sizeof(long long), s);
   }
   if (capacity > 0) {
     slots<<<ttk::blocks_for(capacity, THREADS), THREADS, 0, s>>>(

@@ -586,13 +586,16 @@ def group_ids(words, same, live_s, perm, capacity: int,
     else:
         _check("group_ids.same", same, torch.bool, n)
     dev = live_s.device
-    tiles = max((n + 2047) // 2048, 1)
 
     def empty(k):
         return torch.empty(k, dtype=I64, device=dev)
 
-    gid1, tile_sums = empty(n), empty(tiles)
-    gid_sorted, group = empty(n), empty(n)
+    # the look-back scan's tile words and tile counter (2048-row tiles),
+    # the fill counts (int32) of the row windows (512 rows or more), the
+    # staged ids
+    tiles, windows = (n + 2047) // 2048, (n + 511) // 512
+    state = empty(tiles + 1 + (windows + 1) // 2)
+    staged, gid_sorted, group = empty(n), empty(n), empty(n)
     rep = torch.empty(n, dtype=torch.bool, device=dev) if with_rep else None
     starts, ends, owner = empty(capacity), empty(capacity), empty(capacity)
     num_groups = torch.empty((), dtype=I64, device=dev)
@@ -600,7 +603,7 @@ def group_ids(words, same, live_s, perm, capacity: int,
     native.call(
         "group_ids", "group_ids_launch",
         words, None if words is not None else same, live_s, perm, n,
-        capacity, gid1, tile_sums, gid_sorted, group, rep, starts, ends,
+        capacity, state, staged, gid_sorted, group, rep, starts, ends,
         owner, num_groups, n_live,
     )
     group_ids.launches += 1
@@ -974,11 +977,21 @@ def join_probe(sorted_key, n_build_live, probe_key, probe_live):
     _check("join_probe.n_build_live", n_build_live, I64, 1)
     _check("join_probe.probe_key", probe_key, I64, n)
     _check("join_probe.probe_live", probe_live, torch.bool, n)
-    lo = torch.empty(n, dtype=I64, device=probe_key.device)
-    cnt = torch.empty(n, dtype=I64, device=probe_key.device)
+    dev = probe_key.device
+    m = sorted_key.shape[0]
+    # the key-range directory: 2^log_b + 1 positions, one entry per 8 to
+    # 16 build rows, int32 while the positions fit
+    log_b = max(m.bit_length() - 4, 1)
+    wide = m >= 1 << 31
+    directory = torch.empty(
+        (1 << log_b) + 1, dtype=I64 if wide else torch.int32, device=dev
+    )
+    lo = torch.empty(n, dtype=I64, device=dev)
+    cnt = torch.empty(n, dtype=I64, device=dev)
     native.call(
         "join_probe", "join_probe_launch",
-        sorted_key, n_build_live, probe_key, probe_live, n, lo, cnt,
+        sorted_key, n_build_live, probe_key, probe_live, n, log_b, directory,
+        int(wide), lo, cnt,
     )
     join_probe.launches += 1
     return lo, cnt
