@@ -475,23 +475,78 @@ def test_window_peers_kernel(cuda, n, keys):
         assert torch.equal(a.cpu(), b)
 
 
+def _long_frames(n, case, rng):
+    """Sorted partition ids and frames for W2's multi-tile cases:
+    ``whole``, one partition over the column with running frames;
+    ``long``, partitions of 5,000-40,000 rows (many 2048-row tiles) with
+    offset frames; ``reach``, offset frames up to 3,000 rows either side,
+    past the row's tile."""
+    if case == "whole":
+        gid = np.zeros(n, dtype=np.int64)
+    else:
+        parts = n // 5_000 + 1
+        gid = np.repeat(np.arange(parts), rng.integers(5_000, 40_000, size=parts))[:n]
+        gid = np.concatenate([gid, np.full(n - len(gid), parts)]).astype(np.int64)
+    pos = np.arange(n)
+    first = np.r_[True, gid[1:] != gid[:-1]]
+    pstart = np.maximum.accumulate(np.where(first, pos, 0))
+    last = np.r_[gid[1:] != gid[:-1], True]
+    pend = np.minimum.accumulate(np.where(last, pos + 1, n + 1)[::-1])[::-1]
+    if case == "whole":
+        lo, hi = pstart.copy(), pos + 1
+    else:
+        reach = 3_000 if case == "reach" else 40
+        lo = np.clip(pos - rng.integers(0, reach, size=n), pstart, pend)
+        hi = np.clip(pos + rng.integers(1, reach, size=n), pstart, pend)
+    t = torch.from_numpy
+    return t(gid), t(lo), t(hi)
+
+
 @pytest.mark.parametrize("n,huge", [(0, False), (5, False), (300_000, False),
-                                    (300_000, True)])
+                                    (300_000, True), (300_000, "mixed8"),
+                                    (1_000_000, "whole"), (1_000_000, "long"),
+                                    (1_000_000, "reach"), (300_000, "repeat")])
 def test_range_sum_kernel(cuda, n, huge):
-    rng, gid, _ps, _pe, lo, hi = _window_case(n, seed=n + 2, huge=huge)
+    """W2: int64 lanes bit for bit, float64 lanes to relative 1e-9 of the
+    plain version (NaN where it has NaN). ``huge``: a partition of 1e18s;
+    ``mixed8``: 8 lanes, int64 and float64 in turn; ``whole``, ``long``,
+    ``reach``: see ``_long_frames``; ``repeat``: two calls give equal
+    float64 bits."""
+    if huge in ("whole", "long", "reach"):
+        rng = np.random.default_rng(n + len(huge))
+        gid, lo, hi = _long_frames(n, huge, rng)
+    else:
+        rng, gid, _ps, _pe, lo, hi = _window_case(n, seed=n + 2, huge=huge is True)
     ints = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, size=n))
     f = rng.uniform(1.0, 1000.0, size=n)
-    if huge and n:
+    if huge is True and n:
         f[gid.numpy() == 0] = 1e18  # the huge partition beside small ones
     lanes = [ints, torch.from_numpy(f), torch.from_numpy(rng.integers(0, 1 << 32, size=n))]
+    if huge == "mixed8":
+        g = rng.uniform(1.0, 1e6, size=n)
+        g[rng.random(n) < 1e-4] = np.nan
+        g[gid.numpy() == gid[0].item()] = 1e18
+        lanes += [torch.from_numpy(g),
+                  torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, size=n)),
+                  torch.from_numpy(rng.uniform(1.0, 10.0, size=n)),
+                  torch.ones(n, dtype=torch.int64),
+                  torch.from_numpy(rng.exponential(1e3, size=n))]
     want = K.range_sum(lanes, gid, lo, hi)
     K.range_sum.launches = 0
-    got = K.range_sum([x.to(cuda) for x in lanes], gid.to(cuda), lo.to(cuda), hi.to(cuda))
+    dev = [x.to(cuda) for x in lanes]
+    got = K.range_sum(dev, gid.to(cuda), lo.to(cuda), hi.to(cuda))
     torch.cuda.synchronize()
     assert K.range_sum.launches == 1
-    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])
-    # float64: a segmented scan in another order of addition
-    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-9, atol=0)
+    for a, b in zip(got, want):
+        if b.dtype == torch.int64:
+            assert torch.equal(a.cpu(), b)
+        else:
+            # float64: a segmented scan in another order of addition
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=0, equal_nan=True)
+    if huge == "repeat":
+        again = K.range_sum(dev, gid.to(cuda), lo.to(cuda), hi.to(cuda))
+        for a, b in zip(got, again):
+            assert torch.equal(a.view(torch.int64), b.view(torch.int64))
 
 
 @pytest.mark.parametrize("n,dtype", [
@@ -914,6 +969,10 @@ def test_budgeted_and_revoked_statements_on_card(cuda):
         spill.MIN_CHUNK_ROWS = saved
 
 
+#: M1 card cases whose buckets overflow (rows dropped)
+_PACK_OVERFLOWS = ("hot", "late", "tiny_bucket")
+
+
 @pytest.mark.parametrize("rows,n_parts,bucket,kind", [
     (0, 8, 128, "plain"),
     (5, 3, 2, "plain"),
@@ -922,6 +981,15 @@ def test_budgeted_and_revoked_statements_on_card(cuda):
     (300_000, 8, 75_000, "hot"),        # one destination owns 60%: drops
     (300_000, 64, 9_375, "plain"),
     (100_000, 8, 100_000, "one_dest"),
+    (300_000, 8, 75_000, "int32"),      # int32 dest, passed as it is
+    (4_097, 8, 1_024, "plain"),         # one row past a multiple of the tile
+    (10_000, 1, 10_000, "plain"),       # one destination
+    (100_000, 64, 2_000, "plain"),      # 64 destinations, no overflow
+    (100_000, 8, 25_000, "all_dead"),   # every row dead: all tails
+    (5_000, 8, 1, "tiny_bucket"),       # bucket 1
+    (10_000, 8, 1_024, "late"),         # the dropped rows all in the last tile
+    (300_000, 8, 75_000, "dirty"),      # tails over memory left as 0xFF
+    (50_000, 8, 12_500, "many_cols"),   # 40 payload columns: two batches
 ])
 def test_partition_pack_kernel(cuda, rows, n_parts, bucket, kind):
     """M1 bit for bit: buckets, sent-live flags and counts."""
@@ -932,6 +1000,14 @@ def test_partition_pack_kernel(cuda, rows, n_parts, bucket, kind):
     elif kind == "one_dest":
         dest[:] = 3
     live = rng.random(rows) > 0.1
+    if kind == "all_dead":
+        live[:] = False
+    elif kind == "late":
+        # rows of the last 2048-row tile all go to 2, whose bucket holds
+        # its earlier rows and 5 of those
+        tail = rows // 2048 * 2048
+        dest[tail:] = 2
+        bucket = int((live[:tail] & (dest[:tail] == 2)).sum()) + 5
     payload = [
         torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, rows)),
         torch.from_numpy(rng.integers(0, 1 << 20, rows).astype(np.int32)),
@@ -941,19 +1017,32 @@ def test_partition_pack_kernel(cuda, rows, n_parts, bucket, kind):
     ]
     if kind == "limbs":
         payload.append(torch.from_numpy(rng.integers(0, 1 << 40, (rows, 2))))
-    d, lv = torch.from_numpy(dest), torch.from_numpy(live)
+    elif kind == "many_cols":
+        payload = payload * 8
+    d = torch.from_numpy(dest.astype(np.int32) if kind == "int32" else dest)
+    lv = torch.from_numpy(live)
     want = K.partition_pack(d, lv, payload, n_parts, bucket)
+    dev = [p.to(cuda) for p in payload]
+    if kind == "dirty":
+        # blocks of the buckets' sizes, filled with 0xFF and handed back to
+        # the caching allocator, which gives them to the kernel's buckets
+        junk = [torch.empty_like(w, device=cuda) for w in want[0]]
+        junk.append(torch.empty_like(want[1], device=cuda))
+        for j in junk:
+            j.view(torch.uint8).fill_(0xFF)
+        torch.cuda.synchronize()
+        del junk
     K.partition_pack.launches = 0
-    got = K.partition_pack(d.to(cuda), lv.to(cuda), [p.to(cuda) for p in payload],
-                           n_parts, bucket)
+    got = K.partition_pack(d.to(cuda), lv.to(cuda), dev, n_parts, bucket)
     torch.cuda.synchronize()
     assert K.partition_pack.launches == 1
+    assert len(got[0]) == len(want[0])
     for g, w in zip(got[0], want[0]):
         assert torch.equal(g.cpu(), w)
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[2].cpu(), want[2])
-    if rows >= 100_000:
-        assert bool((want[2] > bucket).any()) == (kind == "hot")
+    if rows >= 100_000 or kind in _PACK_OVERFLOWS:
+        assert bool((want[2] > bucket).any()) == (kind in _PACK_OVERFLOWS)
 
 
 @pytest.mark.parametrize("rows,n_seg,dtype,op", [

@@ -155,6 +155,27 @@ def test_partition_exchange_matches_jax(kind, jax_mesh, mesh):
         np.testing.assert_array_equal(counts[s], want_counts)
 
 
+@pytest.mark.parametrize("kind", ["no_overflow", "overflow", "all_dead", "limbs"])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_partition_pack_dest_dtype_matches_jax(dtype, kind, jax_mesh, mesh):
+    """M1 with int32 and int64 destinations, each passed to the port as it
+    is (the mesh's destinations are int64 residues of a hash), against
+    JAX ``partition_exchange`` given the same array."""
+    dest, live, payload, bucket = _exchange_case(kind, np.random.default_rng(5))
+    dest = dest.astype(dtype)
+    want, want_live, want_ovf = _jax_exchange(jax_mesh, dest, live, payload, bucket)
+    got, got_live, got_ovf, counts = _torch_exchange(mesh, dest, live, payload, bucket)
+    assert got_ovf == want_ovf == (kind == "overflow")
+    np.testing.assert_array_equal(got_live, want_live)
+    for k in want:
+        assert got[k].tobytes() == want[k].tobytes(), k
+    per = len(dest) // N_SHARDS
+    for s in range(N_SHARDS):
+        sl = slice(s * per, (s + 1) * per)
+        np.testing.assert_array_equal(
+            counts[s], np.bincount(dest[sl][live[sl]], minlength=N_SHARDS))
+
+
 def test_partition_pack_is_stable_and_drops_out_of_range():
     dest = torch.tensor([2, 0, 2, 7, -1, 2, 0], dtype=torch.int64)
     live = torch.tensor([True, True, True, True, True, False, True])

@@ -382,3 +382,55 @@ def test_window_kernel_matches_jax(kernel, case, n):
     )
     got = TK.seg_searchsorted(t(w), t(target), t(pstart), t(pend), left)
     assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+def _lane_values(rng, kind: str, n: int, gid):
+    """One W2 value lane: int64 (wide values, wrapping sums) or float64
+    (NaN and a partition of 1e18s beside small values). The floats are
+    positive: a frame whose exact sum is 0 (-0.0s, or values that
+    cancel) beside a nonzero prefix comes out as the residue of two
+    prefix sums, which two orders of addition do not share to any
+    relative tolerance (``KERNEL_CASES``' float64 case has -0.0)."""
+    if kind == "int64":
+        return rng.integers(-(1 << 62), 1 << 62, size=n).astype(np.int64)
+    vals = rng.uniform(1.0, 1000.0, size=n)
+    vals[rng.random(n) < 0.005] = np.nan
+    if n:
+        vals[gid == gid[0]] = 1e18
+    return vals
+
+
+@pytest.mark.parametrize("n", [9, 600, 5000])
+@pytest.mark.parametrize("frames", ["offset", "running", "empty"])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+def test_range_sum_lanes_match_jax(k, frames, n):
+    """W2's plain version over 1, 2, 3 and 8 mixed int64/float64 lanes in
+    one call, each lane against ``window._range_sum`` on its own: offset
+    frames around each row, running frames from the partition start, and
+    empty frames (hi <= lo) among offset ones."""
+    rng = np.random.default_rng(zlib.crc32(f"lanes/{k}/{frames}/{n}".encode()))
+    gid, pstart, pend, _lo, _hi = _sorted_case(n, n)
+    pos = np.arange(n)
+    if frames == "running":
+        lo, hi = pstart.copy(), pos + 1
+    else:
+        lo = np.clip(pos - rng.integers(0, 40, size=n), pstart, pend)
+        hi = np.clip(pos + rng.integers(1, 40, size=n), pstart, pend)
+        if frames == "empty":
+            empty = rng.random(n) < 0.4
+            hi = np.where(empty, np.maximum(lo - rng.integers(0, 3, size=n), pstart), hi)
+    kinds = ["float64" if (j + k) % 2 else "int64" for j in range(k)]
+    lanes = [_lane_values(rng, kind, n, gid) for kind in kinds]
+    t = torch.from_numpy
+    got = TK.range_sum([t(v) for v in lanes], t(gid), t(lo), t(hi))
+    assert len(got) == k
+    for kind, vals, g in zip(kinds, lanes, got):
+        is_f = kind == "float64"
+        want = np.asarray(JW._range_sum(
+            jnp.asarray(vals), jnp.asarray(lo), jnp.asarray(hi), n,
+            gid=jnp.asarray(gid) if is_f else None,
+        ))
+        if is_f:
+            np.testing.assert_allclose(g.numpy(), want, rtol=1e-9, atol=0)
+        else:
+            assert np.array_equal(g.numpy(), want)

@@ -1,6 +1,8 @@
 // Shared helpers of the hand-written kernels: block-wide scans and sums
-// built from warp shuffles (no library collectives), and the key-bit
-// reading that the hashing, packing and ordering kernels share.
+// built from warp shuffles (no library collectives), the decoupled
+// look-back of the single-pass scans (K1 group_ids, M1 partition_pack),
+// and the key-bit reading that the hashing, packing and ordering kernels
+// share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,12 +12,14 @@ namespace ttk {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
-// Inclusive prefix sum of one value per thread across a THREADS-wide
-// block. Every thread of the block must call it. *total receives the
-// block's sum.
-template <typename T>
+// Inclusive prefix sum of one value per thread across a block of BLOCK
+// threads (at most 1024). Every thread of the block must call it. *total
+// receives the block's sum.
+template <typename T, int BLOCK = THREADS>
 __device__ __forceinline__ T block_inclusive_scan(T v, T* total) {
-  __shared__ T warp_sums[WARPS];
+  constexpr int NW = BLOCK / 32;
+  static_assert(BLOCK % 32 == 0 && NW <= 32, "one warp scans the warp sums");
+  __shared__ T warp_sums[NW];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -26,17 +30,17 @@ __device__ __forceinline__ T block_inclusive_scan(T v, T* total) {
   if (lane == 31) warp_sums[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    T w = lane < WARPS ? warp_sums[lane] : T(0);
+    T w = lane < NW ? warp_sums[lane] : T(0);
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       T t = __shfl_up_sync(0xffffffffu, w, d);
       if (lane >= d) w += t;
     }
-    if (lane < WARPS) warp_sums[lane] = w;
+    if (lane < NW) warp_sums[lane] = w;
   }
   __syncthreads();
   T out = v + (warp > 0 ? warp_sums[warp - 1] : T(0));
-  *total = warp_sums[WARPS - 1];
+  *total = warp_sums[NW - 1];
   __syncthreads();  // warp_sums may be reused by the next call
   return out;
 }
@@ -92,6 +96,57 @@ __device__ __forceinline__ T block_scan_op(T v, const Op& op, bool reverse,
   return v;
 }
 
+typedef unsigned long long u64;
+
+// Decoupled look-back (single-pass prefix over tiles taken in order from
+// a counter). Each tile publishes a word per count it carries: the status
+// in the top two bits, the count below; 0 means not published yet.
+constexpr u64 LB_AGGREGATE = 1ull << 62;  // the tile's own count
+constexpr u64 LB_INCLUSIVE = 2ull << 62;  // the prefix through the tile
+constexpr u64 LB_VALUE = (1ull << 62) - 1;
+
+// Publishes tile `tile`'s own count `agg` at words[tile * stride]: as its
+// inclusive prefix for tile 0, else as an aggregate. One thread calls it.
+__device__ __forceinline__ void look_back_publish(volatile u64* words,
+                                                  long long tile,
+                                                  long long stride,
+                                                  long long agg) {
+  words[tile * stride] = (tile == 0 ? LB_INCLUSIVE : LB_AGGREGATE) | (u64)agg;
+}
+
+// Exclusive prefix of tile `tile`, whose own count is `agg`, over the
+// words of the tiles before it (tile j's at words[j * stride]); called by
+// the 32 lanes of one warp. Lane j reads tile last - j, 32 tiles at a
+// time, and sums back to the nearest inclusive word, waiting while one
+// of those is unpublished (its block is running: tiles start in order).
+// Publishes the tile's inclusive prefix; 0 for tile 0.
+__device__ inline long long look_back(volatile u64* words, long long tile,
+                                      long long stride, long long agg) {
+  if (tile == 0) return 0;
+  const int lane = threadIdx.x & 31;
+  long long excl = 0;
+  long long last = tile - 1;
+  for (;;) {
+    const long long at = last - lane;
+    u64 word = LB_INCLUSIVE;  // before tile 0: an inclusive prefix of 0
+    if (at >= 0) word = words[at * stride];
+    const unsigned inclusive = __ballot_sync(0xffffffffu, (word >> 62) == 2);
+    const unsigned unset = __ballot_sync(0xffffffffu, (word >> 62) == 0);
+    // lanes up to the nearest inclusive word (all lanes if none)
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    const unsigned needed = stop == 31 ? 0xffffffffu : (2u << stop) - 1u;
+    if (unset & needed) continue;  // a predecessor has not published yet
+    long long v = lane <= stop ? (long long)(word & LB_VALUE) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+    excl += __shfl_sync(0xffffffffu, v, 0);
+    if (inclusive) break;
+    last -= 32;
+  }
+  if (lane == 0) words[tile * stride] = LB_INCLUSIVE | (u64)(excl + agg);
+  return excl;
+}
+
 inline unsigned int blocks_for(long long n, int per_block) {
   return (unsigned int)((n + per_block - 1) / per_block);
 }
@@ -101,8 +156,6 @@ inline unsigned int blocks_for(long long n, int per_block) {
 enum ColType : int {
   T_I64 = 0, T_I32 = 1, T_I16 = 2, T_I8 = 3, T_BOOL = 4, T_F64 = 5, T_F32 = 6,
 };
-
-typedef unsigned long long u64;
 
 // The canonical quiet NaN of numpy/torch/jax (float("nan")).
 constexpr u64 NAN64_BITS = 0x7FF8000000000000ull;

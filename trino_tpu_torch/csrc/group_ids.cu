@@ -72,44 +72,6 @@ constexpr int MAX_WINDOW_BITS = 12;
 constexpr long long WINDOWS = 1 << 14;
 static_assert(ITEMS * WARPS == 64, "one warp scans two counts per lane");
 
-// A tile's published word: status in the top two bits, a count below.
-constexpr u64 ST_AGGREGATE = 1ull << 62;
-constexpr u64 ST_INCLUSIVE = 2ull << 62;
-constexpr u64 VALUE = (1ull << 62) - 1;
-
-// Exclusive prefix of tile `tile` whose own count is `agg`, by decoupled
-// look-back over the tiles before it; called by the 32 lanes of one warp.
-// Publishes the tile's inclusive prefix.
-__device__ long long look_back(volatile u64* state, long long tile, long long agg) {
-  const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) state[0] = ST_INCLUSIVE | (u64)agg;
-    return 0;
-  }
-  if (lane == 0) state[tile] = ST_AGGREGATE | (u64)agg;
-  long long excl = 0;
-  long long last = tile - 1;  // lane j reads tile last - j
-  for (;;) {
-    const long long at = last - lane;
-    u64 word = ST_INCLUSIVE;  // before tile 0: an inclusive prefix of 0
-    if (at >= 0) word = state[at];
-    const unsigned inclusive = __ballot_sync(FULL, (word >> 62) == 2);
-    const unsigned unset = __ballot_sync(FULL, (word >> 62) == 0);
-    // lanes up to the nearest inclusive prefix (all lanes if none)
-    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
-    const unsigned needed = (2u << stop) - 1u;
-    if (unset & needed) continue;  // a predecessor has not published yet
-    long long v = lane <= stop ? (long long)(word & VALUE) : 0;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(FULL, v, d);
-    excl += __shfl_sync(FULL, v, 0);
-    if (inclusive) break;
-    last -= 32;
-  }
-  if (lane == 0) state[tile] = ST_INCLUSIVE | (u64)(excl + agg);
-  return excl;
-}
-
 __global__ void __launch_bounds__(THREADS) scan_assign(
     const long long* __restrict__ words, const unsigned char* __restrict__ same,
     const unsigned char* __restrict__ live, const long long* __restrict__ perm,
@@ -172,7 +134,8 @@ __global__ void __launch_bounds__(THREADS) scan_assign(
     pre[2 * lane] = incl - own;
     pre[2 * lane + 1] = incl - own + a;
     const long long total = __shfl_sync(FULL, incl, 31);
-    const long long excl = look_back(state, tile, total);
+    if (lane == 0) ttk::look_back_publish(state, tile, 1, total);
+    const long long excl = ttk::look_back(state, tile, 1, total);
     if (lane == 0) {
       excl_s = excl;
       if (tile == (long long)gridDim.x - 1) *num_groups = excl + total;

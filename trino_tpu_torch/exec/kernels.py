@@ -1275,11 +1275,15 @@ def range_sum_plain(lanes, gid, lo, hi):
     return out
 
 
+#: rows a block of W2 covers (TILE in csrc/range_sum.cu)
+RANGE_SUM_TILE = 2048
+
+
 def range_sum(lanes, gid, lo, hi):
     """W2 wrapper: frame sums of int64 or float64 lanes (see
-    ``range_sum_plain``) over the same frames, all lanes in one launch;
-    plain version on the CPU, CUDA kernel (``csrc/range_sum.cu``) on the
-    card."""
+    ``range_sum_plain``) over the same frames, which window.py clips to
+    each row's partition; all lanes in one launch. Plain version on the
+    CPU, CUDA kernel (``csrc/range_sum.cu``) on the card."""
     if _on_cpu(gid, lo, hi, *lanes):
         return range_sum_plain(lanes, gid, lo, hi)
     n = gid.shape[0]
@@ -1295,13 +1299,14 @@ def range_sum(lanes, gid, lo, hi):
         out = torch.empty(n, dtype=vals.dtype, device=dev)
         outs.append(out)
         rows.append([vals.data_ptr(), _TYPE_CODES[vals.dtype], out.data_ptr()])
-    tiles = max((n + 2047) // 2048, 1)
+    tiles = max(-(-n // RANGE_SUM_TILE), 1)
+    heads = torch.empty(max(-(-n // 32), 1), dtype=torch.int32, device=dev)
     tile_f = torch.empty(tiles, dtype=torch.int32, device=dev)
-    tile_v = torch.empty(tiles, dtype=I64, device=dev)
-    cs = torch.empty(n, dtype=I64, device=dev)
+    tile_v = torch.empty(tiles * len(rows), dtype=I64, device=dev)
+    cs = torch.empty(max(n, 1) * len(rows), dtype=I64, device=dev)
     native.call(
         "range_sum", "range_sum_launch", _host_table(rows), len(rows), gid,
-        lo, hi, n, tile_f, tile_v, cs,
+        lo, hi, n, heads, tile_f, tile_v, cs,
     )
     range_sum.launches += 1
     return outs
@@ -2020,7 +2025,7 @@ def partition_pack_plain(dest: torch.Tensor, live: torch.Tensor, payload,
 #: payload columns one M1 launch writes (MAX_COLS in csrc/partition_pack.cu)
 PACK_MAX_COLS = 32
 #: rows a block of M1 covers (TILE in csrc/partition_pack.cu)
-PACK_TILE = 2048
+PACK_TILE = 4096
 
 
 def partition_pack(dest: torch.Tensor, live: torch.Tensor, payload,
@@ -2030,15 +2035,19 @@ def partition_pack(dest: torch.Tensor, live: torch.Tensor, payload,
     overflowing rows dropped): (buckets, sent_live, counts) as
     ``partition_pack_plain``. Plain version on the CPU, CUDA kernel
     (``csrc/partition_pack.cu``) on the card: one wrapper call is one
-    launch (its count, scan and scatter passes; a further scatter pass
-    per ``PACK_MAX_COLS`` payload columns)."""
+    launch (its pack pass over the rows and its pass over the bucket
+    tails; both again per further ``PACK_MAX_COLS`` payload columns). The
+    kernel writes every slot, so the buckets are allocated empty; int32
+    and int64 ``dest`` go to it as they are."""
     if _on_cpu(dest, live, *payload):
         return partition_pack_plain(dest, live, payload, n_parts, bucket)
     if not 1 <= n_parts <= 64:
         raise ValueError(f"partition_pack: 1 to 64 destinations, got {n_parts}")
     n = dest.shape[0]
     dev = dest.device
-    dest32 = dest.to(torch.int32).contiguous()
+    if dest.dtype not in (torch.int32, I64):
+        dest = dest.to(I64)
+    dest = dest.contiguous()
     _check("partition_pack.live", live, torch.bool, n)
     total = n_parts * bucket
     # contiguous copies stay alive in ``cols`` while the kernel reads them
@@ -2050,20 +2059,21 @@ def partition_pack(dest: torch.Tensor, live: torch.Tensor, payload,
         width = arr.element_size() * math.prod(arr.shape[1:])
         if width not in (1, 2, 4, 8, 16):
             raise TypeError(f"partition_pack: payload {i} rows of {width} bytes")
-        out = torch.zeros((total,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+        out = torch.empty((total,) + tuple(arr.shape[1:]), dtype=arr.dtype,
                           device=dev)
         buckets.append(out)
         desc.append([arr.data_ptr(), out.data_ptr(), width])
-    sent = torch.zeros(total, dtype=torch.bool, device=dev)
+    sent = torch.empty(total, dtype=torch.bool, device=dev)
     counts = torch.empty(n_parts, dtype=I64, device=dev)
-    scratch = torch.empty(max(-(-n // PACK_TILE), 1) * n_parts, dtype=I64,
-                          device=dev)
+    state = torch.empty(-(-n // PACK_TILE) * n_parts + 1, dtype=I64, device=dev)
     batches = [desc[i: i + PACK_MAX_COLS]
                for i in range(0, len(desc), PACK_MAX_COLS)] or [[]]
-    for batch in batches:
+    for b, batch in enumerate(batches):
         table = _host_table(batch) if batch else torch.zeros((0, 3), dtype=I64)
-        native.call("partition_pack", "partition_pack_launch", dest32, live, n,
-                    n_parts, bucket, scratch, counts, table, len(batch), sent)
+        # the first batch writes the flags, every batch its own columns
+        native.call("partition_pack", "partition_pack_launch", dest,
+                    int(dest.dtype == I64), live, n, n_parts, bucket, state,
+                    counts, table, len(batch), sent if b == 0 else None)
     partition_pack.launches += 1
     return buckets, sent, counts
 
