@@ -18,7 +18,9 @@ Run from the repository root, with no arguments:
    shapes (TPC-H SF10 scale: 60M rows with 4 and with 1.5M groups, and 8M
    partsupp rows in 2M groups; a 15M-row build side against a 60M-row
    probe, also with uniform u64 keys, with one build key on 30% of the
-   build rows and with the probes in key order; 15M probe rows of 1-7
+   build rows and with the probes in key order; that probe's matches
+   expanded, and 60M probe rows of 0-1 matches with 16 rows of 1M
+   matches each expanded from a 15M-row order; 15M probe rows of 1-7
    matches each, ~60M expanded positions, also with one hot probe row
    owning 10% of them; 60M indices into 15M slots; 60M rows of two and
    of three join-key parts; 60M rows of one and of three GROUP BY keys to
@@ -49,9 +51,12 @@ Run from the repository root, with no arguments:
    the least time the card could take (bytes each input read once and
    each output written once, over 3.35 TB/s of HBM; K5 counts the
    out_live bytes up to each range's first live position, where its scan
-   stops). Beside each K1 case a bare ``group[perm] = gid_sorted``
+   stops; K4 ``lo`` of the matching rows and the rows of ``order`` their
+   ranges cover). Beside each K1 case a bare ``group[perm] = gid_sorted``
    (``index_put_``) is timed: the inverse permutation's store alone,
-   part of K1's work; beside K1's Q1 case, ``stage._presort_shared``'s
+   part of K1's work; beside each K4 case one torch gather of ``order``
+   at each matching row's ``lo``, K4's random reads alone; beside K1's
+   Q1 case, ``stage._presort_shared``'s
    stacked gather of five int64 columns is timed against one gather per
    column,
    and ``kernels.count_true`` (a torch sum) over a 60M-row mask.
@@ -405,16 +410,52 @@ def k4_phase(torch, K, shapes, order, lo, cnt) -> dict:
         j = torch.arange(total, dtype=torch.int64, device=cnt.device)
         return p, order[lo[p] + (j - excl[p])]
 
+    # the random reads of `order` alone, one per matching row, as one torch
+    # gather (its index read and its result written): part of K4's work
+    hit = cnt > 0
+    first = lo[hit]
+    matching = first.shape[0]
+    # the rows of `order` some matching range covers: a +1/-1 at each
+    # range's ends, then a running sum
+    edges = torch.zeros(m + 1, dtype=torch.int32, device=cnt.device)
+    ones = torch.ones(matching, dtype=torch.int32, device=cnt.device)
+    edges.index_add_(0, first, ones)
+    edges.index_add_(0, first + cnt[hit], -ones)
+    covered = int((torch.cumsum(edges[:m], 0) > 0).sum()) if m else 0
+    del edges, ones
     return {
         "max_abs_err": 0,
         "ms": timed_ms(torch, lambda: K.expand_matches(order, lo, cnt, out_cap)),
         "plain_ms": timed_ms(torch, lambda: K.expand_matches_plain(order, lo, cnt, out_cap)),
         "library_ms": timed_ms(torch, library),
-        # order (8 B/build row), lo and cnt (16 B/probe row) in;
-        # probe_idx, build_idx (16 B) and out_live (1 B) per output slot
-        "bound_ms": bound_ms(m * 8 + n * 16 + out_cap * 17),
-        "probe_rows": n, "matches": total, "out_capacity": out_cap,
+        "gather_ms": timed_ms(torch, lambda: order[first]),
+        # cnt (8 B/probe row), lo of the matching rows and the rows of
+        # order their ranges cover (8 B each) in; probe_idx, build_idx
+        # (16 B) and out_live (1 B) per output slot out
+        "bound_ms": bound_ms(n * 8 + matching * 8 + covered * 8 + out_cap * 17),
+        "probe_rows": n, "matching_rows": matching, "order_rows_read": covered,
+        "matches": total, "out_capacity": out_cap,
     }
+
+
+#: K4's skew case: 16 evenly spaced probe rows of this many matches
+K4_HOT_ROWS = 16
+K4_HOT_MATCHES = 1_000_000
+
+
+def k4_skew_case(torch, np, dev):
+    """K4 inputs with hot rows: 60M probe rows of 0 or 1 match (about
+    half 1) and ``K4_HOT_ROWS`` evenly spaced rows of ``K4_HOT_MATCHES``,
+    each ``lo`` drawn so that its range lies inside a 15M-row ``order``
+    (~46M outputs)."""
+    rng = np.random.default_rng(SEED + 44)
+    m, n = ORDERS_ROWS, LINEITEM_ROWS
+    cnt = (rng.random(n) < 0.5).astype(np.int64)
+    cnt[np.arange(K4_HOT_ROWS) * (n // K4_HOT_ROWS) + n // (2 * K4_HOT_ROWS)] = (
+        K4_HOT_MATCHES)
+    lo = (rng.random(n) * (m - cnt + 1)).astype(np.int64)
+    order = torch.from_numpy(rng.permutation(m).astype(np.int64)).to(dev)
+    return order, torch.from_numpy(lo).to(dev), torch.from_numpy(cnt).to(dev)
 
 
 def range_any_case(torch, np, dev, hot: bool):
@@ -1160,10 +1201,10 @@ def a5_phase(torch, np, K, A, shapes, dev, rows, n_groups, k) -> dict:
     }
 
 
-def a6_phase(torch, np, K, dev, chunks, n_groups, caps, k) -> dict:
-    """A6 over the summaries of ``chunks`` chunks, one partial row per
-    group and chunk (0 groups: the global form), against its plain
-    version. The wrapper's time includes its two torch.sort passes."""
+def a6_case(torch, np, dev, chunks, n_groups, k):
+    """A6 inputs: the summaries of ``chunks`` chunks, one partial row per
+    group and chunk (0 groups: the global form), each row's points
+    sorted as ``quant_summary`` leaves them; counts 1-63."""
     rng = np.random.default_rng(SEED + 800 + k)
     rows = chunks * max(n_groups, 1)
     pts = torch.sort(torch.from_numpy(
@@ -1176,6 +1217,15 @@ def a6_phase(torch, np, K, dev, chunks, n_groups, caps, k) -> dict:
     if n_groups:
         group = torch.arange(n_groups, dtype=torch.int64, device=dev).repeat(chunks)
     q = torch.tensor([0.5], dtype=torch.float64, device=dev)
+    return states, eff, group, q
+
+
+def a6_phase(torch, np, K, dev, chunks, n_groups, caps, k) -> dict:
+    """A6 over ``a6_case``'s summaries against its plain version. The
+    wrapper's time includes its stable sort of the partial rows by
+    group."""
+    states, eff, group, q = a6_case(torch, np, dev, chunks, n_groups, k)
+    rows = states.shape[0]
     got, has = K.quant_merge(states, eff, group, caps, q)
     want, whas = K.quant_merge_plain(states, eff, group, caps, q)
     torch.cuda.synchronize()
@@ -1228,8 +1278,8 @@ def split_phases(torch, np, K, A, shapes, dev) -> dict:
     out["a5_grouped"] = a5_phase(torch, np, K, A, shapes, dev, chunk_rows, DS_ITEMS, 256)
     out["a5_global"] = a5_phase(torch, np, K, A, shapes, dev, chunk_rows, 0, 1024)
     torch.cuda.empty_cache()
-    out["a6_grouped"] = a6_phase(torch, np, K, dev, chunks, DS_ITEMS, cap, 256)
-    out["a6_global"] = a6_phase(torch, np, K, dev, chunks, 0, 1, 1024)
+    out["a6_grouped"] = a6_grouped_case(torch, np, K, shapes, dev, chunks)
+    out["a6_global"] = a6_global_case(torch, np, K, shapes, dev, chunks)
     return out
 
 
@@ -1417,6 +1467,43 @@ def mesh_kernel_phases(torch, np, K, shapes, dev) -> dict:
 
 
 #: host threads for a scale's set-up
+def k4_q3_case(torch, np, K, shapes, dev) -> dict:
+    """K4 on the matches of ``join_case``'s Q3 probe."""
+    order, sorted_key, nbl, pk, pl = join_case(torch, np, K, dev)
+    lo, cnt = K.join_probe(sorted_key, nbl, pk, pl)
+    del sorted_key, nbl, pk, pl
+    return k4_phase(torch, K, shapes, order, lo, cnt)
+
+
+def k4_skew_phase(torch, np, K, shapes, dev) -> dict:
+    """K4 on ``k4_skew_case``'s hot rows."""
+    return k4_phase(torch, K, shapes, *k4_skew_case(torch, np, dev))
+
+
+def a6_grouped_case(torch, np, K, shapes, dev, chunks=5, items=DS_ITEMS) -> dict:
+    """A6 over ``chunks`` partial rows of 256 points for each of
+    ``items`` groups (ds_sketch_item's FINAL)."""
+    return a6_phase(torch, np, K, dev, chunks, items,
+                    shapes.table_bucket(items, 0), 256)
+
+
+def a6_global_case(torch, np, K, shapes, dev, chunks=5) -> dict:
+    """A6 over one group of ``chunks`` rows of 1024 points."""
+    return a6_phase(torch, np, K, dev, chunks, 0, 1, 1024)
+
+
+#: kernel cases by name, each ``fn(torch, np, K, shapes, dev, **options)``
+#: returning its phase's dict (the kernel held against its plain version,
+#: then timed). ``kernel_ab.py`` times them on two trees; a redesign adds
+#: its kernel's cases here.
+KERNEL_CASES = {
+    "k4_q3": k4_q3_case,
+    "k4_skew": k4_skew_phase,
+    "a6_grouped": a6_grouped_case,
+    "a6_global": a6_global_case,
+}
+
+
 SETUP_WORKERS = 4
 
 
@@ -1994,6 +2081,8 @@ def main() -> int:
     k3, (lo, cnt) = k3_phase(torch, K, order, sorted_key, nbl, pk, pl)
     k4 = k4_phase(torch, K, shapes, order, lo, cnt)
     del order, sorted_key, nbl, pk, pl, lo, cnt
+    k4_skew = k4_skew_phase(torch, np, K, shapes, dev)
+    torch.cuda.empty_cache()
     k3_kinds = {}
     for kind in JOIN_KINDS:
         k3_kinds[kind], _ = k3_phase(torch, K, *join_case(torch, np, K, dev, kind))
@@ -2079,7 +2168,10 @@ def main() -> int:
         dict(k3_kinds["hot"], case=f"{join}, one build key on 30% of the "
              "build rows"),
         dict(k3_kinds["sorted"], case=f"{join}, probes in key order")])
-    entries["expand_matches"] = dict(k4, case=join)
+    entries["expand_matches"] = dict(k4, case=join, cases=[dict(
+        k4_skew, case=f"{LINEITEM_ROWS / 1e6:g}M probe rows of 0-1 matches and "
+        f"{K4_HOT_ROWS} of {K4_HOT_MATCHES / 1e6:g}M into a "
+        f"{ORDERS_ROWS / 1e6:g}M-row order")])
     expand = f"{ORDERS_ROWS / 1e6:g}M probe rows of 1-7 matches"
     entries["range_any"] = dict(
         k5, case=f"{expand}, {k5['positions'] / 1e6:.1f}M positions",
@@ -2163,7 +2255,7 @@ def main() -> int:
                     "chunk, one group, k = 1024")])
     entries["quant_merge"] = dict(
         sk["a6_grouped"], case=f"{chunks5} x 256 points (~230M), q = 0.5 "
-                               "(ds_sketch_item's FINAL; with its two sorts)",
+                               "(ds_sketch_item's FINAL; with its row sort)",
         cases=[dict(sk["a6_global"], case="one group of 5 x 1024 points")])
     shard = (f"one {LINEITEM_ROWS // MESH_SHARDS / 1e6:g}M-row shard of Q3's "
              f"lineitem exchange (3 int64 columns, 54% live) to {MESH_SHARDS} "
@@ -2234,11 +2326,13 @@ def main() -> int:
             "cases": [
                 {k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "library_ms", "rep_ms",
-                                   "segment_reduce_ms", "scatter_ms")
+                                   "segment_reduce_ms", "scatter_ms",
+                                   "gather_ms")
                  if k in c}
                 for c in e.get("cases", [])
             ],
-            **{k: e[k] for k in ("sort_perm_ms", "rep_ms", "scatter_ms")
+            **{k: e[k] for k in ("sort_perm_ms", "rep_ms", "scatter_ms",
+                                 "gather_ms")
                if k in e},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from test_torch_join_keys import KEY_SETS, join_key_set
+from test_torch_skew_cases import (EXPAND_CASES, QUANT_CASES, expand_case,
+                                   quant_case)
 from trino_tpu_torch.exec import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -116,8 +118,28 @@ def test_seg_sum_kernel(cuda, n, n_keys, dtype):
     # probes all outside the build range, one live build row, sorted probes
     *[(name, m, n) for name in KEY_SETS
       for m, n in ((3000, 4000), (400_000, 1_600_000))],
+    # K4 alone on its adversarial cases (test_torch_skew_cases.py): no
+    # probe rows, no matches, out_cap equal to and below the total, heavy
+    # rows on tile edges, one hot row, many rows wider than a tile
+    *[(name, None, None) for name in EXPAND_CASES],
 ])
 def test_join_kernels(cuda, keys, m, n):
+    if keys in EXPAND_CASES:
+        order, lo, cnt, out_cap = expand_case(keys, seed=3)
+        order, lo, cnt = (torch.from_numpy(x) for x in (order, lo, cnt))
+        p, b, live = K.expand_matches(order, lo, cnt, out_cap)
+        K.expand_matches.launches = 0
+        p_d, b_d, live_d = K.expand_matches(
+            order.to(cuda), lo.to(cuda), cnt.to(cuda), out_cap)
+        torch.cuda.synchronize()
+        assert K.expand_matches.launches == 1
+        assert torch.equal(live_d.cpu(), live)
+        assert torch.equal(p_d.cpu()[live], p[live])
+        assert torch.equal(b_d.cpu()[live], b[live])
+        # dead positions hold in-range placeholders
+        assert ((p_d >= 0) & (p_d < max(cnt.shape[0], 1))).all()
+        assert ((b_d >= 0) & (b_d < max(order.shape[0], 1))).all()
+        return
     if isinstance(keys, str):
         bk, bl, pk, pl = join_key_set(keys, m, n, seed=m + n)
     else:
@@ -147,6 +169,34 @@ def test_join_kernels(cuda, keys, m, n):
     assert torch.equal(live_d.cpu(), live)
     assert torch.equal(p_d.cpu()[live], p[live])
     assert torch.equal(b_d.cpu()[live], b[live])
+
+
+def test_expand_matches_checks_its_scratch(cuda):
+    """K4 sizes its look-back words and heavy-row descriptors by its own
+    TILE and HEAVY: a buffer shorter than those need is refused at launch,
+    not overrun."""
+    from trino_tpu_torch.exec import native
+
+    n, cap = 5 * K.EXPAND_TILE + 3, 4096
+    i64 = dict(dtype=torch.int64, device=cuda)
+    order = torch.arange(64, **i64)
+    lo = torch.zeros(n, **i64)
+    cnt = torch.zeros(n, **i64)
+    cnt[:: 97] = 1
+    state = torch.empty(-(-n // K.EXPAND_TILE) + 3, **i64)
+    heavy = torch.empty((min(n, cap // (K.EXPAND_HEAVY + 1) + 1), 5), **i64)
+    outs = (torch.empty(cap, **i64), torch.empty(cap, **i64),
+            torch.empty(cap, dtype=torch.bool, device=cuda))
+    for st, hv in ((state[:-1], heavy), (state, heavy[:-1])):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            native.call("expand_matches", "expand_matches_launch", order, lo,
+                        cnt, n, cap, st, st.shape[0], hv, hv.shape[0], *outs)
+    native.call("expand_matches", "expand_matches_launch", order, lo, cnt, n,
+                cap, state, state.shape[0], heavy, heavy.shape[0], *outs)
+    torch.cuda.synchronize()
+    want = K.expand_matches_plain(order.cpu(), lo.cpu(), cnt.cpu(), cap)
+    assert torch.equal(outs[2].cpu(), want[2])
+    assert torch.equal(outs[0].cpu()[want[2]], want[0][want[2]])
 
 
 def _range_any_inputs(n, hot, seed):
@@ -916,17 +966,25 @@ def test_quant_summary_kernel(cuda, n, n_keys, k, dtype):
     (400, 100, 256, 128),
     (20_000, 4000, 256, 4096),        # five chunks of 4000 groups
     (2_000, 1, 256, 8),               # one group holding every partial row
+    # the adversarial cases of test_torch_skew_cases.py: points unsorted
+    # within rows, -0.0/+0.0 ties inside the target, NaN and infinities,
+    # no contributing row, groups with no rows, groups past shared memory
+    *[(name, None, None, None) for name in QUANT_CASES],
 ])
 def test_quant_merge_kernel(cuda, rows, n_groups, k, caps):
-    rng = np.random.default_rng(rows + k)
-    pts = np.sort(rng.integers(-300, 300, size=(rows, k)) / 4.0, axis=1)
-    pts[rng.random((rows, k)) < 0.01] = -0.0
-    pts = np.sort(pts, axis=1)
-    cnt = rng.integers(0, 5000, size=rows).astype(np.float64)
-    cnt[::7] = 0.0  # a chunk without the group
-    states = np.concatenate([pts, cnt[:, None]], axis=1)
-    eff = rng.random(rows) >= 0.1
-    group = None if caps == 1 else rng.integers(0, n_groups, size=rows).astype(np.int64)
+    if rows in QUANT_CASES:
+        states, eff, group, caps = quant_case(rows, seed=5)
+        rows = states.shape[0]
+    else:
+        rng = np.random.default_rng(rows + k)
+        pts = np.sort(rng.integers(-300, 300, size=(rows, k)) / 4.0, axis=1)
+        pts[rng.random((rows, k)) < 0.01] = -0.0
+        pts = np.sort(pts, axis=1)
+        cnt = rng.integers(0, 5000, size=rows).astype(np.float64)
+        cnt[::7] = 0.0  # a chunk without the group
+        states = np.concatenate([pts, cnt[:, None]], axis=1)
+        eff = rng.random(rows) >= 0.1
+        group = None if caps == 1 else rng.integers(0, n_groups, size=rows).astype(np.int64)
     s, e = torch.from_numpy(states), torch.from_numpy(eff)
     g = None if group is None else torch.from_numpy(group)
     for q in (0.0, 0.5, 0.9, 1.0):

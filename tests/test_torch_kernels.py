@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from test_torch_join_keys import KEY_SETS, join_key_set
+from test_torch_skew_cases import EXPAND_CASES, expand_case
 from trino_tpu.exec import kernels as JK
 from trino_tpu_torch.exec import kernels as TK
 
@@ -170,6 +171,16 @@ def _join_case(case, m, n, seed):
     if case in KEY_SETS:
         return join_key_set(case, m, n, seed)
     rng = np.random.default_rng(seed)
+    if case == "hot_row":
+        # one live probe row matches 60% of the build rows; the others
+        # match about 0.1 rows each
+        bk = rng.integers(0, 4 * m, size=m).astype(np.int64)
+        bk[rng.random(m) < 0.6] = -5
+        pk = rng.integers(0, 4 * m, size=n).astype(np.int64)
+        pk[n // 3] = -5
+        pl = rng.random(n) >= 0.2
+        pl[n // 3] = True
+        return bk, rng.random(m) >= 0.2, pk, pl
     hi = 30
     bk = rng.integers(0, hi, size=m).astype(np.int64)
     pk = rng.integers(0, hi + 5, size=n).astype(np.int64)
@@ -188,6 +199,8 @@ JOIN_CASES = [
     # the adversarial key sets of K3's key-range directory
     ("outlier", 3000, 4000), ("hot", 3000, 4000), ("hashed", 3000, 4000),
     ("outside", 3000, 2000), ("one_live", 3000, 4000), ("sorted", 3000, 4000),
+    # K4's hot row: one probe row holding most of the outputs
+    ("hot_row", 20_000, 4000),
 ]
 
 
@@ -227,6 +240,28 @@ def test_join_ranges_and_expand_match_jax(case, m, n):
         return
     jp, jb, jl = JK.expand_matches(jo, jlo, jcnt, out_cap)
     tp, tb, tl = TK.expand_matches(to, tlo, tcnt, out_cap)
+    live = _np(jl).astype(bool)
+    np.testing.assert_array_equal(tl.numpy(), live)
+    np.testing.assert_array_equal(_np(tp)[live], _np(jp)[live])
+    np.testing.assert_array_equal(_np(tb)[live], _np(jb)[live])
+
+
+@pytest.mark.parametrize("name", EXPAND_CASES)
+def test_expand_cases_match_jax(name):
+    """K4's plain version against JAX ``expand_matches`` on K4's
+    adversarial cases (``test_torch_skew_cases.py``), the contract the
+    card holds the kernel to: out_live everywhere, both indices at every
+    live position."""
+    order, lo, cnt, out_cap = expand_case(name, seed=3)
+    tp, tb, tl = TK.expand_matches(
+        torch.from_numpy(order), torch.from_numpy(lo), torch.from_numpy(cnt),
+        out_cap)
+    if cnt.size == 0:
+        # the JAX expansion needs at least one probe row
+        assert tp.shape == (out_cap,) and not tl.any()
+        return
+    jp, jb, jl = JK.expand_matches(
+        jnp.asarray(order), jnp.asarray(lo), jnp.asarray(cnt), out_cap)
     live = _np(jl).astype(bool)
     np.testing.assert_array_equal(tl.numpy(), live)
     np.testing.assert_array_equal(_np(tp)[live], _np(jp)[live])

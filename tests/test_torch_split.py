@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_skew_cases import QUANT_CASES, quant_case
 from trino_tpu import types as JT
 from trino_tpu.engine import QueryRunner as JaxRunner
 from trino_tpu.exec import aggregates as JA
@@ -267,6 +268,26 @@ def test_quant_merge_global_and_exact_target():
         )
         assert got.tolist() == np.asarray(want).tolist() == [pick], q
         assert has.tolist() == np.asarray(whas).tolist() == [True]
+
+
+@pytest.mark.parametrize("name", QUANT_CASES)
+def test_quant_cases_match_jax(name):
+    """A6's plain version against the JAX package's ``_quant_merge`` on
+    A6's adversarial cases (``test_torch_skew_cases.py``), the contract
+    the card holds the kernel to: every value, bit for bit, and every
+    flag, at q = 0, 0.5, 0.9 and 1."""
+    states, eff, group, caps = quant_case(name, seed=5)
+    info = None if group is None else _Groups(jnp.asarray(group.astype(np.int32)))
+    tinfo = None if group is None else torch.from_numpy(group)
+    for q in (0.0, 0.5, 0.9, 1.0):
+        got, ghas = TK.quant_merge_plain(
+            torch.from_numpy(states), torch.from_numpy(eff), tinfo, caps,
+            torch.tensor([q], dtype=torch.float64))
+        want, whas = JA._quant_merge(
+            jnp.asarray(states), jnp.asarray([q]), jnp.asarray(eff), None,
+            info, caps, JT.DOUBLE)
+        assert np.array_equal(ghas.numpy(), np.asarray(whas)), q
+        assert np.array_equal(_bits(got.numpy()), _bits(want)), q
 
 
 def test_quant_merge_of_chunks_is_within_the_rank_bound():

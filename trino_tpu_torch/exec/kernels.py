@@ -44,8 +44,8 @@ each beside its plain torch version:
 - ``quant_summary`` (A5, ``csrc/quant_summary.cu``): approx_percentile's
   PARTIAL k-point summary (``aggregates.py:_quant_summary``);
 - ``quant_merge`` (A6, ``csrc/quant_merge.cu``): the FINAL weighted rank
-  pick over merged summaries (``aggregates.py:_quant_merge``), whose
-  sorts stay ``torch.sort``;
+  pick over merged summaries (``aggregates.py:_quant_merge``), a radix
+  select per group with no sort of the points;
 - ``partition_pack`` (M1): a shard's rows packed stably into
   per-destination buckets, the send side of the mesh's exchanges
   (``parallel/exchange.py:partition_exchange``);
@@ -1031,32 +1031,43 @@ def expand_matches_plain(order, lo, cnt, out_capacity: int):
     return probe_idx, build_idx, live
 
 
+#: probe rows a block of K4 covers and the largest count it writes itself
+#: (TILE and HEAVY in csrc/expand_matches.cu): they size the kernel's
+#: look-back words and its heavy-row descriptors, whose lengths the
+#: kernel checks against its own constants
+EXPAND_TILE = 2048
+EXPAND_HEAVY = 32
+
+
 def expand_matches(order, lo, cnt, out_capacity: int):
     """Expand per-probe match ranges into (probe_idx, build_idx,
     out_live) at ``out_capacity`` (port of ``kernels.py:expand_matches``).
     K4 wrapper: plain version on the CPU, CUDA kernel
-    (``csrc/expand_matches.cu``) on the card; the exclusive prefix sum
-    of ``cnt`` is a torch cumsum either way."""
+    (``csrc/expand_matches.cu``: one look-back pass over tiles of
+    ``cnt`` that writes each tile's pairs, then one grid for rows of more
+    than ``EXPAND_HEAVY`` matches and the dead tail) on the card. Dead
+    positions hold probe row ``n - 1`` and build row 0."""
     if _on_cpu(order, lo, cnt):
         return expand_matches_plain(order, lo, cnt, out_capacity)
     n = cnt.shape[0]
     _check("expand_matches.order", order, I64, order.shape[0])
     _check("expand_matches.lo", lo, I64, n)
     _check("expand_matches.cnt", cnt, I64, n)
+    if out_capacity >= 1 << 33:
+        raise ValueError(f"expand_matches: out_capacity {out_capacity} >= 2^33")
     dev = cnt.device
-    inclusive = torch.cumsum(cnt, 0)
-    offsets = inclusive - cnt
-    total = (
-        inclusive[-1:].contiguous() if n
-        else torch.zeros(1, dtype=I64, device=dev)
-    )
+    tiles = -(-n // EXPAND_TILE)
+    state = torch.empty(tiles + 3, dtype=I64, device=dev)
+    # each heavy row below out_capacity covers more than EXPAND_HEAVY slots
+    heavy = torch.empty(
+        (min(n, out_capacity // (EXPAND_HEAVY + 1) + 1), 5), dtype=I64, device=dev)
     probe_idx = torch.empty(out_capacity, dtype=I64, device=dev)
     build_idx = torch.empty(out_capacity, dtype=I64, device=dev)
     out_live = torch.empty(out_capacity, dtype=torch.bool, device=dev)
     native.call(
         "expand_matches", "expand_matches_launch",
-        order, lo, cnt, offsets, total, n, out_capacity,
-        probe_idx, build_idx, out_live,
+        order, lo, cnt, n, out_capacity, state, state.shape[0], heavy,
+        heavy.shape[0], probe_idx, build_idx, out_live,
     )
     expand_matches.launches += 1
     return probe_idx, build_idx, out_live
@@ -1857,13 +1868,28 @@ def quant_merge_plain(states: torch.Tensor, eff: torch.Tensor,
     return vals[p[at]], total > 0
 
 
+def _a6_staged_points(k: int, counts: torch.Tensor | None, n: int) -> int:
+    """The points of one group that A6 stages in shared memory: the rows
+    that 99% of the groups with rows fit in (``counts``: rows per group;
+    None: one group of ``n`` rows), k points each. One host sync. A
+    larger group reads its points from device memory on every pass, and
+    the kernel clamps this to a block's shared memory."""
+    if counts is None:
+        return n * k
+    present = (counts > 0).sum()
+    at = counts.shape[0] - present + (present * 99 + 99) // 100 - 1
+    return int(torch.sort(counts).values[at]) * k
+
+
 def quant_merge(states: torch.Tensor, eff: torch.Tensor,
                 group: torch.Tensor | None, caps: int, q: torch.Tensor):
     """A6 wrapper: the FINAL weighted rank pick (see
-    ``quant_merge_plain``). The sorts stay ``torch.sort``; the kernel
-    (``csrc/quant_merge.cu``, one warp per group) scans each group's run
-    of the sorted points for its total and its pick. Plain version on the
-    CPU."""
+    ``quant_merge_plain``). Plain version on the CPU. On the card the
+    partial rows (not their points) are ordered by group with one stable
+    ``torch.sort``, and the kernel (``csrc/quant_merge.cu``, one block
+    per group) finds each group's pick by a weighted radix select over
+    the order bits of its points. ``group`` must lie in [0, caps), as the
+    plain version's does; ``k`` must be a power of two."""
     if _on_cpu(states, eff, group, q):
         return quant_merge_plain(states, eff, group, caps, q)
     n, k1 = states.shape
@@ -1871,27 +1897,38 @@ def quant_merge(states: torch.Tensor, eff: torch.Tensor,
     dev = states.device
     if states.dtype != torch.float64:
         raise TypeError(f"quant_merge: float64 summaries, got {states.dtype}")
-    out = torch.zeros(caps, dtype=torch.float64, device=dev)
-    has = torch.zeros(caps, dtype=torch.bool, device=dev)
-    if n == 0 or k == 0:
-        return out, has
+    if n == 0 or k == 0 or caps == 0:
+        return (torch.zeros(caps, dtype=torch.float64, device=dev),
+                torch.zeros(caps, dtype=torch.bool, device=dev))
+    if k & (k - 1):
+        raise ValueError(f"quant_merge: k = {k} is not a power of two")
+    if n * k >= 1 << 32:
+        raise ValueError(f"quant_merge: {n} x {k} points (the kernel counts "
+                         "a group's points in 32 bits)")
     states = states.contiguous()
     eff = eff.contiguous()
     _check("quant_merge.eff", eff, torch.bool, n)
+    # no group: the kernel takes every row as group 0's, in row order
+    rows = seg_lo = seg_hi = last_group = counts = None
     if group is not None:
         group = group.to(I64).contiguous()
         _check("quant_merge.group", group, I64, n)
-    p = _quant_order(states, group)
-    # each group's run of the sorted points: k points per partial row
-    if group is None:
-        seg_hi = torch.full((1,), n * k, dtype=I64, device=dev)
-    else:
-        rows = torch.bincount(group, minlength=caps)[:caps]
-        seg_hi = torch.cumsum(rows, 0) * k
-    seg_lo = torch.cat([seg_hi.new_zeros(1), seg_hi[:-1]])
+        # rows by group, each group's rows in row order (flat index order)
+        ordered, rows = torch.sort(group.to(torch.int32), stable=True)
+        # (bincount would sync to size its output)
+        counts = torch.zeros(caps, dtype=I64, device=dev).index_add_(
+            0, group, torch.ones_like(group))
+        seg_hi = torch.cumsum(counts, 0)
+        seg_lo = seg_hi - counts
+        last_group = ordered[-1:].to(I64)
     q = q.reshape(-1)[:1].to(torch.float64).contiguous()
-    native.call("quant_merge", "quant_merge_launch", states, k, n, eff, p,
-                seg_lo, seg_hi, caps, q, out, has)
+    last_flat = torch.empty(1, dtype=I64, device=dev)
+    out = torch.empty(caps, dtype=torch.float64, device=dev)
+    has = torch.empty(caps, dtype=torch.bool, device=dev)
+    native.call("quant_merge", "quant_merge_launch", states, k, n, eff, rows,
+                seg_lo, seg_hi, last_group, caps,
+                _a6_staged_points(k, counts, n), q,
+                last_flat, out, has)
     quant_merge.launches += 1
     return out, has
 
