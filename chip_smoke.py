@@ -808,6 +808,35 @@ def range7_case(torch, np, dev):
     return gid, key, perm, w, pstart, pend, paid
 
 
+def window_float_values(torch, np, dev, n):
+    """float64 window values in (1, 1000) with NaN and -0.0, and a
+    validity with 5% NULLs (W1's nullable float64 key), on ``dev``."""
+    rng = np.random.default_rng(SEED + 201)
+    x = rng.uniform(1.0, 1000.0, size=n)
+    x[rng.random(n) < 1e-6] = np.nan
+    x[rng.random(n) < 0.01] = -0.0
+    valid = rng.random(n) >= 0.05
+    return torch.from_numpy(x).to(dev), torch.from_numpy(valid).to(dev)
+
+
+def long_peers_case(torch, np, dev):
+    """ds_range7's 28.8M rows in 120 partitions ordered by a key of 4
+    values a partition (a rank over a quarter): peer groups of ~60K rows,
+    ~30 tiles of 2048 each, the key in original row order behind a random
+    permutation."""
+    rng = np.random.default_rng(SEED + 202)
+    n = DS_SALES_ROWS
+    store = torch.from_numpy(rng.integers(0, DS_STORES, size=n)).to(dev)
+    quarter = torch.from_numpy(rng.integers(0, 4, size=n)).to(dev)
+    both = torch.sort(store * 4 + quarter).values
+    gid, w = (both // 4).contiguous(), (both % 4).contiguous()
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    key = torch.empty_like(w)
+    key[perm] = w
+    _, pend = partition_bounds(torch, gid)
+    return gid, key, perm, pend
+
+
 def encoded_search(torch, gid, w, target, right: bool):
     """The row-offset searchsorted yardstick: partition id and key in
     one monotone int64, one torch.searchsorted over all rows."""
@@ -829,11 +858,16 @@ def w1_phase(torch, K, gid, keys, perm, pend, with_dense) -> dict:
         d.shape[0] * d.element_size() + (0 if v is None else v.shape[0])
         for d, v in keys
     )
+
+    def gather():  # the random reads alone: each key part and validity
+        return [t[perm] for col in keys for t in col if t is not None]
+
     return {
         "max_abs_err": 0,
         "ms": timed_ms(torch, lambda: K.window_peers(gid, keys, perm, pend, with_dense)),
         "plain_ms": timed_ms(torch, lambda: K.window_peers_plain(gid, keys, perm, pend, with_dense)),
         "library_ms": None,  # no PyTorch call finds peer groups
+        "gather_ms": timed_ms(torch, gather),
         # gid, perm, pend (8 B each) and the keys in; peer_start and
         # peer_end (8 B each) and dense (8 B) out
         "bound_ms": bound_ms(n * 24 + key_bytes + n * (24 if with_dense else 16)),
@@ -932,9 +966,10 @@ def w4_phase(torch, K, gid, w, target, pstart, pend, left) -> dict:
 def window_phases(torch, np, K, dev) -> dict:
     """W1-W4 at the TPC-DS SF10 shapes of the main path."""
     out = {}
-    gid, key, perm, w, pstart, pend, paid = range7_case(torch, np, dev)
+    r7 = range7_case(torch, np, dev)
+    gid, key, perm, w, pstart, pend, paid = r7
     n = gid.shape[0]
-    out["w1"] = w1_phase(torch, K, gid, [(key, None)], perm, pend, False)
+    out["w1"] = w1_case(torch, np, K, None, dev, case=r7)
     lo = encoded_search(torch, gid, w, w - 6, right=False)
     hi = encoded_search(torch, gid, w, w, right=True)
     out["w4_left"] = w4_phase(torch, K, gid, w, w - 6, pstart, pend, True)
@@ -944,12 +979,8 @@ def window_phases(torch, np, K, dev) -> dict:
     out["w2"] = w2_phase(torch, K, lanes, gid, lo, hi,
                          lambda: cumsum_frames(torch, lanes, lo, hi))
     # float64 ROWS frames, NaN and -0.0, and a partition of 1e18s
-    rng = np.random.default_rng(SEED + 201)
-    x = rng.uniform(1.0, 1000.0, size=n)
-    x[rng.random(n) < 1e-6] = np.nan
-    x[rng.random(n) < 0.01] = -0.0
-    fx = torch.from_numpy(x).to(dev)
-    fx = torch.where(gid == 0, torch.full_like(fx, 1e18), fx)
+    x, x_valid = window_float_values(torch, np, dev, n)
+    fx = torch.where(gid == 0, torch.full_like(x, 1e18), x)
     pos = torch.arange(n, dtype=torch.int64, device=dev)
     rlo = torch.maximum(pos - 2, pstart)
     rhi = torch.minimum(pos + 3, pend)
@@ -965,17 +996,17 @@ def window_phases(torch, np, K, dev) -> dict:
         torch, K, iv, gid, pstart, pos + 1, -(1 << 63), False,
         lambda: torch.cummax(gid * big + (iv + (1 << 39)), 0).values)
     out["w3_float"] = w3_phase(
-        torch, K, torch.from_numpy(x).to(dev), gid, pstart, pos + 1,
-        float("-inf"), False, None)
-    out["w1_float"] = w1_phase(
-        torch, K, gid, [(torch.from_numpy(x).to(dev),
-                         torch.from_numpy(rng.random(n) >= 0.05).to(dev))],
-        perm, pend, True)
-    del gid, key, perm, w, pstart, pend, paid, lo, hi, ones, lanes, fx, pos
-    del rlo, rhi, iv
+        torch, K, x, gid, pstart, pos + 1, float("-inf"), False, None)
+    out["w1_float"] = w1_float_case(torch, np, K, None, dev, case=r7,
+                                    values=(x, x_valid))
+    del r7, gid, key, perm, w, pstart, pend, paid, lo, hi, ones, lanes, fx, pos
+    del rlo, rhi, iv, x, x_valid
+    torch.cuda.empty_cache()
+    out["w1_long"] = w1_long_case(torch, np, K, None, dev)
     torch.cuda.empty_cache()
     # q51's windowed relation: 5.5M rows over 180K items, decimal(38,2)
     # running sums and running maxima over two limbs
+    rng = np.random.default_rng(SEED + 203)
     m = Q51_ROWS
     item = torch.from_numpy(np.sort(rng.integers(0, Q51_ITEMS, size=m))).to(dev)
     qs, qe = partition_bounds(torch, item)
@@ -1078,16 +1109,22 @@ def a3_phase(torch, np, K, info, dtype_name: str, tag: int) -> dict:
                  "the plain version")
     cap = info.starts.shape[0]
     perm, starts, ends = info.perm, info.starts, info.ends
+    n_live = int(ends[-1])
+    n_contrib = int(contrib[perm[:n_live]].sum())
     return {
         "max_abs_err": 0,
         "ms": timed_ms(torch, lambda: K.seg_arg_extreme(keys, contrib, info, False)),
         "plain_ms": timed_ms(torch, lambda: K.seg_arg_extreme_plain(
             keys, contrib, perm, starts, ends, False)),
         "library_ms": None,  # no PyTorch call takes a segmented argmax
-        # perm, the key (8 B each) and contrib (1 B) read once; starts
-        # and ends read, the rows written once (8 B a slot each)
-        "bound_ms": bound_ms(n * 17 + cap * 24),
-        "rows": n, "capacity": cap, "groups": int(info.num_groups),
+        # the random reads alone: the key and contrib through perm
+        "gather_ms": timed_ms(torch, lambda: (keys[perm], contrib[perm])),
+        # perm (8 B) and contrib (1 B) of each live row and the key (8 B)
+        # of each contributing live row read once; starts and ends read,
+        # the rows written once (8 B a slot each)
+        "bound_ms": bound_ms(n_live * 9 + n_contrib * 8 + cap * 24),
+        "rows": n, "live_rows": n_live, "contributing_rows": n_contrib,
+        "capacity": cap, "groups": int(info.num_groups),
         "dtype": dtype_name,
     }
 
@@ -1102,28 +1139,24 @@ def agg_phases(torch, np, K, shapes, dev) -> dict:
     rng = np.random.default_rng(SEED + 500)
     n = DS_SALES_ROWS
     cust = torch.from_numpy(rng.integers(1, 1_000_001, size=n).astype(np.int64)).to(dev)
-    contrib = torch.from_numpy(rng.random(n) >= 0.03).to(dev)
-    out["a1_global"], _ = a1_phase(torch, K, cust, contrib, None, 4096, 1, False)
+    info, live = a3_group_case(torch, np, K, shapes, dev, DS_ITEMS)
+    out["a1_global"], _ = a1_phase(torch, K, cust, live, None, 4096, 1, False)
     hot = torch.full((n,), 0x1234_5678_9ABC_DEF0, dtype=torch.int64, device=dev)
-    out["a1_hot"], _ = a1_phase(torch, K, hot, contrib, None, 4096, 1, True)
+    out["a1_hot"], _ = a1_phase(torch, K, hot, live, None, 4096, 1, True)
     del hot
-    item = torch.from_numpy(rng.integers(0, DS_ITEMS, size=n).astype(np.int64)).to(dev)
-    info = K.group_by([(item, None)], contrib, shapes.table_bucket(DS_ITEMS, 0),
-                      widths=(int(DS_ITEMS - 1).bit_length(),))
     caps = info.starts.shape[0]
-    out["a1_grouped"], reg = a1_phase(torch, K, cust, contrib, info.group, 512, caps,
+    out["a1_grouped"], reg = a1_phase(torch, K, cust, live, info.group, 512, caps,
                                       False)
     out["a2"] = a2_phase(torch, K, reg)
     del reg, cust
     torch.cuda.empty_cache()
     out["a3_items_int"] = a3_phase(torch, np, K, info, "int64", 1)
     out["a3_items_float"] = a3_phase(torch, np, K, info, "float64", 2)
-    del info
-    store = torch.from_numpy(rng.integers(0, DS_STORES, size=n).astype(np.int64)).to(dev)
-    info = K.group_by([(store, None)], contrib, 128, widths=(7,))
+    del info, live
+    info, _ = a3_group_case(torch, np, K, shapes, dev, DS_STORES)
     out["a3_stores_int"] = a3_phase(torch, np, K, info, "int64", 3)
     out["a3_stores_float"] = a3_phase(torch, np, K, info, "float64", 4)
-    del info, store, item, contrib
+    del info
     torch.cuda.empty_cache()
     return out
 
@@ -1492,6 +1525,61 @@ def a6_global_case(torch, np, K, shapes, dev, chunks=5) -> dict:
     return a6_phase(torch, np, K, dev, chunks, 0, 1, 1024)
 
 
+def a3_group_case(torch, np, K, shapes, dev, n_groups: int):
+    """The groupings of ``agg_phases`` (A1's and A3's): 28.8M store_sales
+    rows, 3% dead, by item (180K groups) or by store (120). Returns the
+    GroupInfo and the live rows."""
+    rng = np.random.default_rng(SEED + 510 + n_groups)
+    n = DS_SALES_ROWS
+    live = torch.from_numpy(rng.random(n) >= 0.03).to(dev)
+    key = torch.from_numpy(rng.integers(0, n_groups, size=n).astype(np.int64)).to(dev)
+    cap = shapes.table_bucket(n_groups, 0) if n_groups == DS_ITEMS else 128
+    info = K.group_by([(key, None)], live, cap,
+                      widths=(int(n_groups - 1).bit_length(),))
+    return info, live
+
+
+def a3_items_int_case(torch, np, K, shapes, dev) -> dict:
+    info, _ = a3_group_case(torch, np, K, shapes, dev, DS_ITEMS)
+    return a3_phase(torch, np, K, info, "int64", 1)
+
+
+def a3_items_float_case(torch, np, K, shapes, dev) -> dict:
+    info, _ = a3_group_case(torch, np, K, shapes, dev, DS_ITEMS)
+    return a3_phase(torch, np, K, info, "float64", 2)
+
+
+def a3_stores_int_case(torch, np, K, shapes, dev) -> dict:
+    info, _ = a3_group_case(torch, np, K, shapes, dev, DS_STORES)
+    return a3_phase(torch, np, K, info, "int64", 3)
+
+
+def a3_stores_float_case(torch, np, K, shapes, dev) -> dict:
+    info, _ = a3_group_case(torch, np, K, shapes, dev, DS_STORES)
+    return a3_phase(torch, np, K, info, "float64", 4)
+
+
+def w1_case(torch, np, K, shapes, dev, case=None) -> dict:
+    """W1 on ds_range7's one int64 key (``case``: ``range7_case``'s
+    inputs, built here when not given)."""
+    gid, key, perm, _w, _pstart, pend, _paid = case or range7_case(torch, np, dev)
+    return w1_phase(torch, K, gid, [(key, None)], perm, pend, False)
+
+
+def w1_float_case(torch, np, K, shapes, dev, case=None, values=None) -> dict:
+    """W1 on ds_range7's rows with a nullable float64 key, with dense
+    (``values``: ``window_float_values``' data and validity)."""
+    gid, _key, perm, _w, _pstart, pend, _paid = case or range7_case(torch, np, dev)
+    x, valid = values or window_float_values(torch, np, dev, gid.shape[0])
+    return w1_phase(torch, K, gid, [(x, valid)], perm, pend, True)
+
+
+def w1_long_case(torch, np, K, shapes, dev) -> dict:
+    """W1 on ``long_peers_case``'s peer groups of ~60K rows."""
+    gid, key, perm, pend = long_peers_case(torch, np, dev)
+    return w1_phase(torch, K, gid, [(key, None)], perm, pend, False)
+
+
 #: kernel cases by name, each ``fn(torch, np, K, shapes, dev, **options)``
 #: returning its phase's dict (the kernel held against its plain version,
 #: then timed). ``kernel_ab.py`` times them on two trees; a redesign adds
@@ -1501,6 +1589,13 @@ KERNEL_CASES = {
     "k4_skew": k4_skew_phase,
     "a6_grouped": a6_grouped_case,
     "a6_global": a6_global_case,
+    "a3_items_int": a3_items_int_case,
+    "a3_items_float": a3_items_float_case,
+    "a3_stores_int": a3_stores_int_case,
+    "a3_stores_float": a3_stores_float_case,
+    "w1": w1_case,
+    "w1_float": w1_float_case,
+    "w1_long": w1_long_case,
 }
 
 
@@ -2203,7 +2298,9 @@ def main() -> int:
     entries["window_peers"] = dict(
         wk["w1"], case=f"{sales}, one int64 key (ds_range7)",
         cases=[dict(wk["w1_float"], case=f"{sales}, a nullable float64 key "
-                    "with NaN and -0.0, dense count")])
+                    "with NaN and -0.0, dense count"),
+               dict(wk["w1_long"], case=f"{sales}, an int64 key of 4 values "
+                    "a partition (peer groups of ~60K rows)")])
     entries["range_sum"] = dict(
         wk["w2"], case=f"{sales}, RANGE 6 preceding frames, count and "
                        "int64 lanes (ds_range7)",
@@ -2273,14 +2370,19 @@ def main() -> int:
                dict(mk["m2_max"], case=f"{rows} float64 with NaN and -0.0 into 16 slots, max"),
                dict(mk["m2_hist"], case=f"{rows}: live flags by destination into "
                     f"{MESH_SHARDS} slots (_dest_counts)")])
+
+    def gathered(c):
+        return f", gather {c['gather_ms']:.3f} ms" if "gather_ms" in c else ""
+
     for name, e in entries.items():
         print(f"kernel {name} [{e['case']}]: {e['ms']:.3f} ms, plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']} ms, bound "
-              f"{e['bound_ms']:.3f} ms; equal to the plain version", flush=True)
+              f"{e['bound_ms']:.3f} ms{gathered(e)}; equal to the plain version",
+              flush=True)
         for c in e.get("cases", []):
             print(f"kernel {name} [{c['case']}]: {c['ms']:.3f} ms, plain "
                   f"{c['plain_ms']:.3f} ms, library {c['library_ms']} ms, "
-                  f"bound {c['bound_ms']:.3f} ms; max_abs_err "
+                  f"bound {c['bound_ms']:.3f} ms{gathered(c)}; max_abs_err "
                   f"{c['max_abs_err']}", flush=True)
 
     # ---- main path: TPC-H, then TPC-DS, each with the counts set to 0

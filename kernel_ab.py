@@ -24,13 +24,16 @@ Exits non-zero if a turn fails.
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 #: the port's own CUDA kernels (every csrc/*.cu keeps them in an
-#: anonymous namespace)
+#: anonymous namespace, as some of PyTorch's own do)
 OWN_KERNEL = "(anonymous namespace)::"
+_KERNEL_DEF = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
 
 
 def _chip_smoke():
@@ -51,9 +54,32 @@ def parse_case(arg: str) -> tuple[str, dict]:
     return name, options
 
 
-def _device_us(torch, fn) -> dict:
+def kernel_names(tree: str) -> set[str]:
+    """The names of the ``__global__`` functions in a tree's
+    ``trino_tpu_torch/csrc/*.cu``."""
+    csrc = os.path.join(tree, "trino_tpu_torch", "csrc")
+    names = set()
+    for f in os.listdir(csrc):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as src:
+                names.update(_KERNEL_DEF.findall(src.read()))
+    return names
+
+
+def own_kernel(key: str, names: set[str]) -> str | None:
+    """The name (with its template arguments) of one of the port's CUDA
+    kernels ``names`` from a profiler key, or None for anything else. A
+    template kernel's key starts with its return type, ``void``."""
+    key = key.removeprefix("void ")
+    if not key.startswith(OWN_KERNEL):
+        return None
+    name = key[len(OWN_KERNEL):].split("(")[0]
+    return name if name.split("<")[0] in names else None
+
+
+def _device_us(torch, fn, names: set[str]) -> dict:
     """Device time (us) a launch, and launches, of each of the port's
-    CUDA kernels in one call of ``fn``."""
+    CUDA kernels ``names`` in one call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -62,12 +88,12 @@ def _device_us(torch, fn) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if not e.key.startswith(OWN_KERNEL):
+        name = own_kernel(e.key, names)
+        if name is None:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        name = e.key[len(OWN_KERNEL):].split("(")[0]
         out[name] = {"us": round(us / max(e.count, 1), 1), "launches": e.count}
     return out
 
@@ -87,6 +113,7 @@ def turn(tree: str, cases: list[str]) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
     native.build_all()
+    names = kernel_names(tree)
     dev = torch.device("cuda")
     out = {"tree": tree}
     for arg in cases:
@@ -94,7 +121,7 @@ def turn(tree: str, cases: list[str]) -> dict:
         run = cs.KERNEL_CASES[name]
         out[arg] = run(torch, np, K, shapes, dev, **options)
         out[arg]["kernels_us"] = _device_us(
-            torch, lambda: run(torch, np, K, shapes, dev, **options))
+            torch, lambda: run(torch, np, K, shapes, dev, **options), names)
         torch.cuda.empty_cache()
     return out
 

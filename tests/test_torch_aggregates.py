@@ -41,6 +41,8 @@ from trino_tpu_torch.exec import aggregates as TA
 from trino_tpu_torch.exec import kernels as TK
 from trino_tpu_torch.testing.statements import AGGREGATE_SQLITE, AGGREGATE_STATEMENTS
 
+from test_torch_tile_cases import ARG_CASES, arg_case
+
 SIGN = -(1 << 63)
 
 
@@ -266,12 +268,7 @@ def _arg_case(dtype, n, seed):
     return gkey, live, contrib, keys
 
 
-@pytest.mark.parametrize("is_min", [True, False])
-@pytest.mark.parametrize("dtype", ["int64", "float64", "int32", "bool"])
-@pytest.mark.parametrize("n", [1, 7, 3000])
-def test_seg_arg_extreme_matches_jax(dtype, n, is_min):
-    gkey, live, contrib, keys = _arg_case(dtype, n, seed=n + len(dtype))
-    capacity = 1024
+def _assert_arg_extreme_matches_jax(gkey, live, contrib, keys, is_min, capacity):
     tinfo = TK.group_by([(torch.from_numpy(gkey), None)], torch.from_numpy(live), capacity)
     jinfo = JK.sort_group(
         (jnp.asarray(gkey.view(np.uint64)),), (None,), jnp.asarray(live), capacity,
@@ -295,6 +292,30 @@ def test_seg_arg_extreme_matches_jax(dtype, n, is_min):
         bits = _i64(JK.order_bits(jnp.asarray(keys[rows]))) ^ SIGN
         best = bits.min() if is_min else bits.max()
         assert got[g] == rows[np.flatnonzero(bits == best)[0]]
+    # a group without one gives its first sorted row (the port's contract)
+    used = np.arange(capacity) < int(tinfo.num_groups)
+    firsts = tinfo.perm.numpy()[tinfo.starts.numpy()[used & ~has]]
+    assert np.array_equal(got[used & ~has], firsts)
+
+
+@pytest.mark.parametrize("is_min", [True, False])
+@pytest.mark.parametrize("dtype", ["int64", "float64", "int32", "bool"])
+@pytest.mark.parametrize("n", [1, 7, 3000])
+def test_seg_arg_extreme_matches_jax(dtype, n, is_min):
+    gkey, live, contrib, keys = _arg_case(dtype, n, seed=n + len(dtype))
+    _assert_arg_extreme_matches_jax(gkey, live, contrib, keys, is_min, 1024)
+
+
+@pytest.mark.parametrize("is_min", [True, False])
+@pytest.mark.parametrize("name,live_rows", [
+    ("edge", 2047), ("edge", 2048), ("edge", 2049), ("singletons", 1000),
+] + [(c, None) for c in ARG_CASES if c not in ("edge", "singletons")])
+def test_seg_arg_extreme_tile_cases_match_jax(name, live_rows, is_min):
+    """A3's tile shapes (``test_torch_tile_cases.py``) at one tile's size:
+    3000 rows, as ``test_seg_arg_extreme_matches_jax``'s largest case, so
+    that the JAX function compiled for it serves these too."""
+    gkey, live, contrib, keys = arg_case(name, 3000, seed=len(name), live_rows=live_rows)
+    _assert_arg_extreme_matches_jax(gkey, live, contrib, keys, is_min, 1024)
 
 
 @pytest.mark.parametrize("n", [1, 7, 3000])

@@ -18,6 +18,7 @@ import torch
 from test_torch_join_keys import KEY_SETS, join_key_set
 from test_torch_skew_cases import (EXPAND_CASES, QUANT_CASES, expand_case,
                                    quant_case)
+from test_torch_tile_cases import arg_case, peer_case
 from trino_tpu_torch.exec import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -525,6 +526,36 @@ def test_window_peers_kernel(cuda, n, keys):
         assert torch.equal(a.cpu(), b)
 
 
+#: W1 around its 2048-row tiles (test_torch_tile_cases.py): n at a
+#: multiple of 2048 and one row either side, peer groups of ~100K rows,
+#: one peer group over every row (no key part), every row a boundary, 32
+#: key parts
+PEER_TILE_SHAPES = [
+    ("edge", 2048 * 100 - 1), ("edge", 2048 * 100), ("edge", 2048 * 100 + 1),
+    ("long", 1_000_000), ("one_group", 1_000_000), ("unique", 300_000),
+    ("keys32", 50_000),
+]
+
+
+@pytest.mark.parametrize("with_dense", [False, True])
+@pytest.mark.parametrize("name,n", PEER_TILE_SHAPES)
+def test_window_peers_tile_cases(cuda, name, n, with_dense):
+    t = torch.from_numpy
+    gid, pend, perm, keys = peer_case(name, n, seed=n)
+    gid, pend, perm = t(gid), t(pend), t(perm)
+    cols = [(t(d), None if v is None else t(v)) for d, v in keys]
+    want = K.window_peers(gid, cols, perm, pend, with_dense=with_dense)
+    dev = [(d.to(cuda), None if v is None else v.to(cuda)) for d, v in cols]
+    K.window_peers.launches = 0
+    got = K.window_peers(gid.to(cuda), dev, perm.to(cuda), pend.to(cuda),
+                         with_dense=with_dense)
+    torch.cuda.synchronize()
+    assert K.window_peers.launches == 1
+    for out, a, b in zip(("peer_start", "peer_end", "dense"), got, want):
+        assert (a is None) == (b is None), out
+        assert a is None or torch.equal(a.cpu(), b), out
+
+
 def _long_frames(n, case, rng):
     """Sorted partition ids and frames for W2's multi-tile cases:
     ``whole``, one partition over the column with running frames;
@@ -852,6 +883,74 @@ def test_seg_arg_extreme_kernel(cuda, n, n_keys, dtype):
         torch.cuda.synchronize()
         assert K.seg_arg_extreme.launches == 1
         assert torch.equal(got.cpu(), want.cpu()), (is_min, dtype)
+
+
+#: A3 around its 2048-position tiles (test_torch_tile_cases.py): (case,
+#: rows, live rows): the live rows at a multiple of 2048 and one either
+#: side; three groups of ~150 tiles each; a group a row; runs of groups
+#: with no contributing row longer than a tile; no contributing row
+ARG_TILE_SHAPES = [
+    ("edge", 2048 * 100 + 500, 2048 * 100 - 1),
+    ("edge", 2048 * 100 + 500, 2048 * 100),
+    ("edge", 2048 * 100 + 500, 2048 * 100 + 1),
+    ("long_group", 1_000_000, None), ("singletons", 300_000, None),
+    ("dead_run", 300_000, None), ("none", 100_000, None),
+]
+
+
+@pytest.mark.parametrize("name,n,live_rows", ARG_TILE_SHAPES)
+def test_seg_arg_extreme_tile_cases(cuda, name, n, live_rows):
+    gkey, live, contrib, keys = arg_case(name, n, seed=n + len(name),
+                                         live_rows=live_rows)
+    cap = 1 << max(int(gkey.max() + 1).bit_length(), 3)
+    info = K.group_by([(torch.from_numpy(gkey), None)], torch.from_numpy(live),
+                      cap, widths=(64,))
+    info_c = K.GroupInfo(*(None if t is None else t.to(cuda) for t in info))
+    k, c = torch.from_numpy(keys), torch.from_numpy(contrib)
+    for is_min in (True, False):
+        want = K.seg_arg_extreme_plain(k, c, info.perm, info.starts, info.ends, is_min)
+        K.seg_arg_extreme.launches = 0
+        got = K.seg_arg_extreme(k.to(cuda), c.to(cuda), info_c, is_min)
+        torch.cuda.synchronize()
+        assert K.seg_arg_extreme.launches == 1
+        assert torch.equal(got.cpu(), want), (name, is_min)
+
+
+def _unaligned(mask, cuda, offset):
+    """``mask`` on the card as a contiguous view ``offset`` bytes past an
+    allocation, so that its flags do not start a 4-byte word."""
+    padded = torch.zeros(mask.shape[0] + offset, dtype=torch.bool, device=cuda)
+    padded[offset:] = mask.to(cuda)
+    view = padded[offset:]
+    assert view.is_contiguous() and view.data_ptr() % 4 == offset
+    return view
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_unaligned_flags(cuda, offset):
+    """A3's contrib and W1's validity as views 1-3 bytes past a 4-byte
+    word: both kernels pack them from the word that holds the first flag,
+    with the same results."""
+    gkey, live, contrib, keys = arg_case("edge", 100_000 + offset, seed=3,
+                                         live_rows=90_000)
+    info = K.group_by([(torch.from_numpy(gkey), None)], torch.from_numpy(live),
+                      1 << 13, widths=(64,))
+    info_c = K.GroupInfo(*(None if t is None else t.to(cuda) for t in info))
+    k, c = torch.from_numpy(keys), torch.from_numpy(contrib)
+    for is_min in (True, False):
+        want = K.seg_arg_extreme_plain(k, c, info.perm, info.starts, info.ends, is_min)
+        got = K.seg_arg_extreme(k.to(cuda), _unaligned(c, cuda, offset), info_c, is_min)
+        assert torch.equal(got.cpu(), want)
+    t = torch.from_numpy
+    gid, pend, perm, cols = peer_case("keys32", 70_001 + offset, seed=5)
+    cols = [(t(d), None if v is None else t(v)) for d, v in cols]
+    want = K.window_peers(t(gid), cols, t(perm), t(pend), with_dense=True)
+    dev = [(d.to(cuda), None if v is None else _unaligned(v, cuda, offset))
+           for d, v in cols]
+    got = K.window_peers(t(gid).to(cuda), dev, t(perm).to(cuda), t(pend).to(cuda),
+                         with_dense=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_tiny_aggregate_statements_on_card(cuda):

@@ -36,6 +36,27 @@ def test_kernel_case_takes_the_common_arguments(name):
     assert params[:5] == ["torch", "np", "K", "shapes", "dev"]
 
 
+def test_kernel_names_are_the_ports():
+    names = kernel_ab.kernel_names(str(REPO))
+    assert {"tiles", "fixup", "pack_contrib", "peers", "close_open", "pack_valid",
+            "scan_assign", "merge_groups", "seg_sum_kernel"} <= names
+    assert "elementwise_kernel_with_index" not in names
+
+
+@pytest.mark.parametrize("key,want", [
+    ("(anonymous namespace)::tiles(void const*, int, unsigned int const*)", "tiles"),
+    ("void (anonymous namespace)::pack_valid<true>(unsigned char const*, long long, "
+     "unsigned int*)", "pack_valid<true>"),
+    # PyTorch's own kernels, one of them in an anonymous namespace too
+    ("void (anonymous namespace)::elementwise_kernel_with_index<int, "
+     "at::native::arange_cuda_out>(int)", None),
+    ("void at::native::vectorized_elementwise_kernel<4>(int)", None),
+    ("Memset (Device)", None),
+])
+def test_own_kernel_names(key, want):
+    assert kernel_ab.own_kernel(key, kernel_ab.kernel_names(str(REPO))) == want
+
+
 def test_unknown_case_is_refused(capsys):
     assert kernel_ab.main(["a", "b", "no_such_case"]) == 2
     assert "no_such_case" in capsys.readouterr().err

@@ -39,6 +39,8 @@ from trino_tpu_torch.exec import window as TW
 from trino_tpu_torch.expr import ir as TIR
 from trino_tpu_torch.plan import nodes as TP
 
+from test_torch_tile_cases import PEER_CASES, peer_case
+
 I64_MIN = np.iinfo(np.int64).min
 N = 96
 
@@ -265,6 +267,27 @@ def _jax_peers(gid, keys, perm, pend, n):
     peer_end = jnp.flip(jax.lax.associative_scan(jnp.minimum, rev))
     peer_end = jnp.minimum(peer_end, pend)
     return peer_start, peer_end, jnp.cumsum(peer_b.astype(jnp.int64))
+
+
+@pytest.mark.parametrize("name,n", [("edge", 2047), ("edge", 2048), ("edge", 2049)]
+                         + [(c, 600) for c in PEER_CASES if c != "edge"])
+def test_window_peers_tile_cases_match_jax(name, n):
+    """W1's plain version on its tile shapes (``test_torch_tile_cases.py``)
+    against the JAX lines (jitted: one compile a shape), with the dense
+    count; n at a tile's size and one row either side for ``edge``."""
+    gid, pend, perm, keys = peer_case(name, n, seed=n)
+    t = torch.from_numpy
+    got = TK.window_peers_plain(
+        t(gid), [(t(d), None if v is None else t(v)) for d, v in keys],
+        t(perm), t(pend), with_dense=True,
+    )
+    want = jax.jit(_jax_peers, static_argnums=4)(
+        jnp.asarray(gid),
+        [(jnp.asarray(d), None if v is None else jnp.asarray(v)) for d, v in keys],
+        jnp.asarray(perm), jnp.asarray(pend), n,
+    )
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w).astype(np.int64))
 
 
 class _Info:

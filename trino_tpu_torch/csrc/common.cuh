@@ -1,8 +1,9 @@
 // Shared helpers of the hand-written kernels: block-wide scans and sums
 // built from warp shuffles (no library collectives), the decoupled
-// look-back of the single-pass scans (K1 group_ids, M1 partition_pack),
-// and the key-bit reading that the hashing, packing and ordering kernels
-// share.
+// look-back of the single-pass scans (K1 group_ids, K4 expand_matches,
+// M1 partition_pack, W1 window_peers), the flag bitmaps that keep random
+// flag reads in L2 (A3, W1), and the key-bit reading that the hashing,
+// packing and ordering kernels share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -99,13 +100,17 @@ __device__ __forceinline__ T block_scan_op(T v, const Op& op, bool reverse,
 typedef unsigned long long u64;
 
 // Decoupled look-back (single-pass prefix over tiles taken in order from
-// a counter). Each tile publishes a word per count it carries: the status
-// in the top two bits, the count below; 0 means not published yet.
-constexpr u64 LB_AGGREGATE = 1ull << 62;  // the tile's own count
+// a counter). Each tile publishes a word per value it carries: the status
+// in the top two bits, the value below; 0 means not published yet. A
+// value is a count carried as a sum (LB_SUM) or a non-negative value
+// carried as a max (LB_MAX); 0 is the identity of both.
+constexpr u64 LB_AGGREGATE = 1ull << 62;  // the tile's own value
 constexpr u64 LB_INCLUSIVE = 2ull << 62;  // the prefix through the tile
 constexpr u64 LB_VALUE = (1ull << 62) - 1;
 
-// Publishes tile `tile`'s own count `agg` at words[tile * stride]: as its
+enum LookBackOp : int { LB_SUM = 0, LB_MAX = 1 };
+
+// Publishes tile `tile`'s own value `agg` at words[tile * stride]: as its
 // inclusive prefix for tile 0, else as an aggregate. One thread calls it.
 __device__ __forceinline__ void look_back_publish(volatile u64* words,
                                                   long long tile,
@@ -114,12 +119,14 @@ __device__ __forceinline__ void look_back_publish(volatile u64* words,
   words[tile * stride] = (tile == 0 ? LB_INCLUSIVE : LB_AGGREGATE) | (u64)agg;
 }
 
-// Exclusive prefix of tile `tile`, whose own count is `agg`, over the
-// words of the tiles before it (tile j's at words[j * stride]); called by
-// the 32 lanes of one warp. Lane j reads tile last - j, 32 tiles at a
-// time, and sums back to the nearest inclusive word, waiting while one
-// of those is unpublished (its block is running: tiles start in order).
-// Publishes the tile's inclusive prefix; 0 for tile 0.
+// Exclusive prefix (sum or max, by OP) of tile `tile`, whose own value is
+// `agg`, over the words of the tiles before it (tile j's at
+// words[j * stride]); called by the 32 lanes of one warp. Lane j reads
+// tile last - j, 32 tiles at a time, and combines back to the nearest
+// inclusive word, waiting while one of those is unpublished (its block
+// is running: tiles start in order). Publishes the tile's inclusive
+// prefix; 0 for tile 0.
+template <LookBackOp OP = LB_SUM>
 __device__ inline long long look_back(volatile u64* words, long long tile,
                                       long long stride, long long agg) {
   if (tile == 0) return 0;
@@ -138,13 +145,83 @@ __device__ inline long long look_back(volatile u64* words, long long tile,
     if (unset & needed) continue;  // a predecessor has not published yet
     long long v = lane <= stop ? (long long)(word & LB_VALUE) : 0;
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-    excl += __shfl_sync(0xffffffffu, v, 0);
+    for (int d = 16; d > 0; d >>= 1) {
+      const long long o = __shfl_down_sync(0xffffffffu, v, d);
+      v = OP == LB_SUM ? v + o : (o > v ? o : v);
+    }
+    const long long w = __shfl_sync(0xffffffffu, v, 0);
+    excl = OP == LB_SUM ? excl + w : (w > excl ? w : excl);
     if (inclusive) break;
     last -= 32;
   }
-  if (lane == 0) words[tile * stride] = LB_INCLUSIVE | (u64)(excl + agg);
+  const long long incl = OP == LB_SUM ? excl + agg : (agg > excl ? agg : excl);
+  if (lane == 0) words[tile * stride] = LB_INCLUSIVE | (u64)incl;
   return excl;
+}
+
+// Flags a block of pack_flags packs.
+constexpr long long PACK_BLOCK = (long long)THREADS * 32;
+
+// Packs block blockIdx.x's share of flags[0, n) (nonzero = set) into bits
+// (bit i % 32 of word i / 32), so that random reads of the flags hit a
+// bitmap an eighth of their size, which stays in L2. Every thread of a
+// THREADS-wide block calls it, and every alignment of flags takes the
+// same path: a warp reads 1024 bytes from the 4-byte word that holds
+// flags[0] on, 4 a load (the first and last words a byte at a time), 8
+// loads in flight; each 8 lanes OR their nibbles into the mask of 32
+// bytes, and a funnel shift by flags' address mod 4 with the next mask
+// gives the word of 32 flags. The warp's lanes 0-7 read the next 32
+// bytes too, for its last word.
+__device__ __forceinline__ void pack_flags(const unsigned char* flags,
+                                           long long n, unsigned int* bits) {
+  constexpr int LOADS = 8;
+  constexpr long long WARP_BYTES = 128 * LOADS;
+  static_assert(PACK_BLOCK == WARPS * WARP_BYTES, "a warp packs 1024 bytes");
+  const int shift = (int)((size_t)flags & 3);
+  const unsigned char* word0 = flags - shift;  // 4-byte aligned
+  const long long m = n + shift;               // flags end in word0's bytes
+  const int lane = threadIdx.x & 31;
+  const long long base = (long long)blockIdx.x * PACK_BLOCK +
+                         (long long)(threadIdx.x >> 5) * WARP_BYTES;
+  unsigned int f[LOADS + 1];
+#pragma unroll
+  for (int k = 0; k <= LOADS; ++k) {
+    const long long i = base + 128 * k + 4 * lane;
+    unsigned int v = 0;
+    if (k < LOADS || lane < 8) {
+      if (i >= shift && i + 3 < m) {
+        v = *(const unsigned int*)(word0 + i);
+      } else {
+        for (int b = 0; b < 4; ++b) {
+          if (i + b >= shift && i + b < m) v |= (unsigned int)word0[i + b] << (8 * b);
+        }
+      }
+    }
+    f[k] = ((v & 0xFFu) != 0) | ((v & 0xFF00u) != 0) << 1 |
+           ((v & 0xFF0000u) != 0) << 2 | ((v & 0xFF000000u) != 0) << 3;
+  }
+#pragma unroll
+  for (int k = 0; k <= LOADS; ++k) {
+    unsigned int g = f[k] << 4 * (lane & 7);
+    g |= __shfl_xor_sync(0xffffffffu, g, 1);
+    g |= __shfl_xor_sync(0xffffffffu, g, 2);
+    g |= __shfl_xor_sync(0xffffffffu, g, 4);
+    f[k] = g;
+  }
+#pragma unroll
+  for (int k = 0; k < LOADS; ++k) {
+    // the mask after this group's: the next group's, or for lanes 24-31
+    // the next load's first
+    const unsigned int next = __shfl_sync(0xffffffffu, lane < 8 ? f[k + 1] : f[k],
+                                          (lane + 8) & 31);
+    const long long w = (base + 128 * k) / 32 + (lane >> 3);
+    if ((lane & 7) == 0 && 32 * w < n) bits[w] = __funnelshift_r(f[k], next, shift);
+  }
+}
+
+// Bit i of a pack_flags bitmap.
+__device__ __forceinline__ bool flag_bit(const unsigned int* bits, long long i) {
+  return (bits[i >> 5] >> (i & 31)) & 1u;
 }
 
 inline unsigned int blocks_for(long long n, int per_block) {

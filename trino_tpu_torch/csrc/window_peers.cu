@@ -14,22 +14,42 @@
 // (the hi limb of a decimal(38) does, its lo limb does not, as in the JAX
 // package). peer_start[p] is the last boundary at or before p; peer_end[p]
 // is the first boundary after p (n when none), capped at pend[p]; dense[p]
-// counts the boundaries at or before p. The keys are read in original row
-// order through perm (no sorted copy of them is made), each row's once:
-// a thread walks consecutive rows and carries the previous row's bits.
+// counts the boundaries at or before p.
 //
 // Bound on an H100 (3.35 TB/s): gid, perm and pend (24 B) and each key part
 // (8 B) read once, peer_start and peer_end (16 B) and dense (8 B) written
 // once: 28.8M rows and one key (ds_range7 at SF10) ~1.4 GB, ~0.4 ms. Bytes
-// bound it; the key reads through perm are random.
+// bound it. The key reads through perm are random, each at least a 32 B
+// sector from DRAM (the column is larger than L2): on the card they take
+// more than half of the time (PERF.md).
 //
-// Design: a two-level scan, as K1 runs its cumsum. Pass 1 gives each block
-// a tile of THREADS*ITEMS rows: it writes the boundary flags and the
-// tile's last boundary, first boundary and boundary count. Pass 2 (one
-// block) turns those into each tile's carries: the last boundary before
-// it (a max-scan), the first boundary after it (a reverse min-scan) and
-// the boundaries before it (a sum). Pass 3 rescans each tile's flags from
-// its carries and writes the outputs.
+// Design: a pack of the validity masks, one look-back pass over tiles of
+// TILE rows, then a short pass for the rows whose next boundary lies in a
+// later tile.
+// 0. `pack_valid`: each key part's validity, read once coalesced, becomes
+//    a bitmap an eighth of its size, so that its random reads stay in L2
+//    while the random reads of the keys pass through it.
+// 1. `peers`: a block takes the next tile from a counter. Each warp owns
+//    256 consecutive rows, 32 at a time, so gid, perm and pend are read
+//    and the outputs written coalesced. Each key part of each row is
+//    gathered once through perm; a lane compares with the previous row's
+//    bits by a shuffle (lane 0 with the last lane of the warp's previous
+//    32 rows, or with the row before the warp, read once by the warp).
+//    Ballots count the boundaries: each row's count in the tile, and the
+//    tile's boundaries in order in shared memory. A row's peer start is
+//    then the boundary at its count, or the last boundary before the
+//    tile; its peer end, the next boundary in the tile. The last boundary
+//    before the tile (a max) and the boundaries before it (a sum) come
+//    from ttk::look_back, warps 0 and 1 at once; both are integers, so
+//    the results do not depend on the order tiles finish in.
+// 2. Rows from the tile's last boundary on are open: their next boundary
+//    is the first of a later tile. `peers` leaves their peer_end and
+//    stores the tile's first boundary and first open row. `close_open`
+//    takes groups of CLOSE_TILES tiles from the last to the first, finds
+//    the first boundary after each group by a reverse look-back (a max
+//    of n - boundary) and writes the open rows' peer_end, a warp a tile.
+//    A peer group over many tiles is written by the warps of those tiles,
+//    not by the tile that closes it. Each output is written once.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -37,175 +57,222 @@
 namespace {
 
 using ttk::THREADS;
+using ttk::WARPS;
 using ttk::u64;
 constexpr int ITEMS = 8;
-constexpr long long TILE = (long long)THREADS * ITEMS;
+constexpr int WARP_ROWS = ITEMS * 32;
+constexpr int TILE = THREADS * ITEMS;
 constexpr int MAX_KEYS = 32;
+constexpr int CLOSE_TILES = WARPS;  // tiles of a `close_open` block, a warp each
+constexpr unsigned FULL = 0xffffffffu;
 
+// The key parts; `valid` is each part's validity as a pack_flags bitmap
+// (null: no NULLs).
 struct Keys {
   const void* data[MAX_KEYS];
-  const unsigned char* valid[MAX_KEYS];
+  const unsigned int* valid[MAX_KEYS];
   long long stride[MAX_KEYS];
   int type[MAX_KEYS];
   int k;
 };
 
-struct MaxOp {
-  __device__ __forceinline__ long long operator()(long long a, long long b) const {
-    return a > b ? a : b;
-  }
-};
+__global__ void __launch_bounds__(THREADS) pack_valid(
+    const unsigned char* __restrict__ valid, long long n,
+    unsigned int* __restrict__ bits) {
+  ttk::pack_flags(valid, n, bits);
+}
 
-struct MinOp {
-  __device__ __forceinline__ long long operator()(long long a, long long b) const {
-    return a < b ? a : b;
-  }
-};
+// words: the look-back words, the max and the sum of tile j at 2j and
+// 2j + 1; rec: each tile's first boundary (n: none), then from n_tiles
+// each tile's first open row. Four blocks an SM (64 registers a thread).
+__global__ void __launch_bounds__(THREADS, 4) peers(
+    Keys keys, const long long* __restrict__ gid,
+    const long long* __restrict__ perm, const long long* __restrict__ pend,
+    long long n, long long n_tiles, u64* words, unsigned int* next_tile,
+    long long* __restrict__ rec, long long* __restrict__ peer_start,
+    long long* __restrict__ peer_end, long long* __restrict__ dense) {
+  __shared__ int bpos[TILE];  // the tile's boundaries in order (tile rows)
+  __shared__ int warp_cnt[WARPS];
+  __shared__ long long tile_s, start_s, dense_s;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) tile_s = atomicAdd(next_tile, 1u);
+  __syncthreads();
+  const long long tile = tile_s;
+  const long long t0 = tile * TILE;
+  const int l0 = warp * WARP_ROWS + lane;  // row i of this lane: l0 + 32 i
+  const long long before = t0 + warp * WARP_ROWS - 1;
+  const bool has_before = before >= 0 && before < n;
 
-struct AddOp {
-  __device__ __forceinline__ long long operator()(long long a, long long b) const {
-    return a + b;
-  }
-};
-
-__global__ void peer_flags(Keys keys, const long long* gid, const long long* perm,
-                           long long n, unsigned char* flag, long long* tile_last,
-                           long long* tile_first, long long* tile_cnt) {
-  const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
+  // 1. boundaries: partition ids, then each key part through perm
+  long long r[ITEMS];
   bool b[ITEMS];
-  long long row[ITEMS];
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long p = base + i;
-    b[i] = p < n && (p == 0 || gid[p] != gid[p - 1]);
-    row[i] = p < n ? perm[p] : 0;
-  }
-  // each key part of each row read once: the previous row's carried over
-  const long long before = base > 0 && base < n ? perm[base - 1] : -1;
-  for (int j = 0; j < keys.k; ++j) {
-    const void* data = keys.data[j];
-    const unsigned char* valid = keys.valid[j];
-    bool prev_null = false;
-    u64 prev = 0;
-    if (before >= 0) {
-      prev_null = valid != nullptr && !valid[before];
-      if (!prev_null) prev = ttk::key_bits(data, keys.type[j], before * keys.stride[j]);
-    }
+  {
+    long long g[ITEMS];
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
-      const long long p = base + i;
-      if (p >= n) break;
-      const bool is_null = valid != nullptr && !valid[row[i]];
-      const u64 bits =
-          is_null ? 0ull : ttk::key_bits(data, keys.type[j], row[i] * keys.stride[j]);
-      if (p > 0 && (is_null != prev_null || bits != prev)) b[i] = true;
-      prev_null = is_null;
-      prev = bits;
+      const long long p = t0 + l0 + 32 * i;
+      g[i] = p < n ? gid[p] : 0;
+      r[i] = p < n ? perm[p] : 0;
     }
-  }
-  long long last = -1, first = n, cnt = 0;
+    long long last = has_before ? gid[before] : 0;
 #pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long p = base + i;
-    if (p >= n) break;
-    flag[p] = b[i] ? 1 : 0;
-    if (b[i]) {
-      last = p;
-      if (first == n) first = p;
-      ++cnt;
+    for (int i = 0; i < ITEMS; ++i) {
+      const long long p = t0 + l0 + 32 * i;
+      long long prev = __shfl_up_sync(FULL, g[i], 1);
+      if (lane == 0) prev = last;
+      last = __shfl_sync(FULL, g[i], 31);
+      b[i] = p < n && (p == 0 || g[i] != prev);
     }
   }
-  long long excl, total;
-  bool has;
-  ttk::block_scan_op(last, MaxOp{}, false, &excl, &has, &total);
-  if (threadIdx.x == 0) tile_last[blockIdx.x] = total;
-  ttk::block_scan_op(first, MinOp{}, false, &excl, &has, &total);
-  if (threadIdx.x == 0) tile_first[blockIdx.x] = total;
-  ttk::block_scan_op(cnt, AddOp{}, false, &excl, &has, &total);
-  if (threadIdx.x == 0) tile_cnt[blockIdx.x] = total;
-}
+  const long long r_before = has_before ? perm[before] : 0;
+  for (int j = 0; j < keys.k; ++j) {
+    const void* data = keys.data[j];
+    const unsigned int* valid = keys.valid[j];
+    const long long stride = keys.stride[j];
+    const int type = keys.type[j];
+    u64 bits[ITEMS];
+    int nul[ITEMS];
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const bool in = t0 + l0 + 32 * i < n;
+      nul[i] = in && valid != nullptr && !ttk::flag_bit(valid, r[i]);
+      bits[i] = in ? ttk::key_bits(data, type, r[i] * stride) : 0;
+    }
+    int last_nul = has_before && valid != nullptr && !ttk::flag_bit(valid, r_before);
+    u64 last = has_before && !last_nul ? ttk::key_bits(data, type, r_before * stride) : 0;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      if (nul[i]) bits[i] = 0;
+      u64 prev = __shfl_up_sync(FULL, bits[i], 1);
+      int prev_nul = __shfl_up_sync(FULL, nul[i], 1);
+      if (lane == 0) {
+        prev = last;
+        prev_nul = last_nul;
+      }
+      last = __shfl_sync(FULL, bits[i], 31);
+      last_nul = __shfl_sync(FULL, nul[i], 31);
+      const long long p = t0 + l0 + 32 * i;
+      if (p > 0 && p < n && (bits[i] != prev || nul[i] != prev_nul)) b[i] = true;
+    }
+  }
 
-// One block: tile_last becomes the last boundary before each tile (-1),
-// tile_first the first boundary after it (n), tile_cnt the boundaries
-// before it, all in place.
-__global__ void peer_carries(long long* tile_last, long long* tile_first,
-                             long long* tile_cnt, long long num_tiles, long long n) {
-  long long excl, total;
-  bool has;
-  long long carry = -1;
-  for (long long c = 0; c < num_tiles; c += THREADS) {
-    const long long i = c + threadIdx.x;
-    const long long v = i < num_tiles ? tile_last[i] : -1;
-    ttk::block_scan_op(v, MaxOp{}, false, &excl, &has, &total);
-    if (i < num_tiles) tile_last[i] = has && excl > carry ? excl : carry;
-    carry = total > carry ? total : carry;
+  // 2. each row's boundary count in the tile (inclusive), and the tile's
+  // boundaries in order
+  int c[ITEMS];
+  {
+    int run = 0;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const unsigned m = __ballot_sync(FULL, b[i]);
+      c[i] = run + __popc(m & ((2u << lane) - 1u));
+      run += __popc(m);
+    }
+    if (lane == 0) warp_cnt[warp] = run;
   }
-  long long sum = 0;
-  for (long long c = 0; c < num_tiles; c += THREADS) {
-    const long long i = c + threadIdx.x;
-    const long long v = i < num_tiles ? tile_cnt[i] : 0;
-    ttk::block_scan_op(v, AddOp{}, false, &excl, &has, &total);
-    if (i < num_tiles) tile_cnt[i] = sum + (has ? excl : 0);
-    sum += total;
+  __syncthreads();
+  int nb = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int v = warp_cnt[w];
+    if (w < warp) {
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) c[i] += v;
+    }
+    nb += v;
   }
-  // from the last chunk to the first, each scanned from its last thread
-  carry = n;
-  const long long chunks = (num_tiles + THREADS - 1) / THREADS;
-  for (long long ch = chunks - 1; ch >= 0; --ch) {
-    const long long i = ch * THREADS + threadIdx.x;
-    const long long v = i < num_tiles ? tile_first[i] : n;
-    ttk::block_scan_op(v, MinOp{}, true, &excl, &has, &total);
-    if (i < num_tiles) tile_first[i] = has && excl < carry ? excl : carry;
-    carry = total < carry ? total : carry;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    if (b[i]) bpos[c[i] - 1] = l0 + 32 * i;
   }
-}
+  __syncthreads();
 
-__global__ void peer_apply(const unsigned char* flag, const long long* pend,
-                           const long long* start_carry, const long long* end_carry,
-                           const long long* cnt_carry, long long n,
-                           long long* peer_start, long long* peer_end,
-                           long long* dense) {
-  const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  unsigned char b[ITEMS];
-  long long last = -1, first = n, cnt = 0;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long p = base + i;
-    b[i] = p < n ? flag[p] : 0;
-    if (b[i]) {
-      last = p;
-      if (first == n) first = p;
-      ++cnt;
+  // 3. the carries (warp 0: the last boundary before the tile, plus one;
+  // warp 1: the boundaries before it), while the rows up to the tile's
+  // last boundary take their peer end from the tile
+  const long long last_b = nb > 0 ? t0 + bpos[nb - 1] : -1;
+  if (warp == 0) {
+    if (lane == 0) ttk::look_back_publish(words, tile, 2, last_b + 1);
+    const long long e = ttk::look_back<ttk::LB_MAX>(words, tile, 2, last_b + 1);
+    if (lane == 0) {
+      start_s = e - 1;
+      rec[tile] = nb > 0 ? t0 + bpos[0] : n;
+      rec[n_tiles + tile] = nb > 0 ? last_b : t0;
     }
-  }
-  long long excl, total;
-  bool has;
-  ttk::block_scan_op(last, MaxOp{}, false, &excl, &has, &total);
-  long long run_last = start_carry[blockIdx.x];
-  if (has && excl > run_last) run_last = excl;
-  ttk::block_scan_op(first, MinOp{}, true, &excl, &has, &total);
-  long long next = end_carry[blockIdx.x];
-  if (has && excl < next) next = excl;
-  ttk::block_scan_op(cnt, AddOp{}, false, &excl, &has, &total);
-  long long run_cnt = cnt_carry[blockIdx.x] + (has ? excl : 0);
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long p = base + i;
-    if (p >= n) break;
-    if (b[i]) {
-      run_last = p;
-      ++run_cnt;
-    }
-    peer_start[p] = run_last;
-    if (dense != nullptr) dense[p] = run_cnt;
+  } else if (warp == 1 && dense != nullptr) {
+    if (lane == 0) ttk::look_back_publish(words + 1, tile, 2, nb);
+    const long long e = ttk::look_back<ttk::LB_SUM>(words + 1, tile, 2, nb);
+    if (lane == 0) dense_s = e;
   }
 #pragma unroll
-  for (int i = ITEMS - 1; i >= 0; --i) {
-    const long long p = base + i;
-    if (p < n) {
+  for (int i = 0; i < ITEMS; ++i) {
+    const long long p = t0 + l0 + 32 * i;
+    if (p < n && c[i] < nb) {
+      const long long next = t0 + bpos[c[i]];
       const long long cap = pend[p];
       peer_end[p] = next < cap ? next : cap;
-      if (b[i]) next = p;
+    }
+  }
+  __syncthreads();
+  const long long start_before = start_s;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const long long p = t0 + l0 + 32 * i;
+    if (p < n) {
+      peer_start[p] = c[i] > 0 ? t0 + bpos[c[i] - 1] : start_before;
+      if (dense != nullptr) dense[p] = dense_s + c[i];
+    }
+  }
+}
+
+// The open rows of each tile (from its first open row to its end): their
+// peer end is the first boundary of a later tile (n when none).
+__global__ void __launch_bounds__(THREADS) close_open(
+    const long long* __restrict__ pend, long long n, long long n_tiles,
+    const long long* __restrict__ rec, u64* words, unsigned int* next_group,
+    long long* __restrict__ peer_end) {
+  __shared__ long long first_s[CLOSE_TILES], next_s[CLOSE_TILES];
+  __shared__ long long group_s;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const long long groups = (n_tiles + CLOSE_TILES - 1) / CLOSE_TILES;
+  if (t == 0) group_s = atomicAdd(next_group, 1u);
+  __syncthreads();
+  const long long s = group_s;  // scan order: the last tiles first
+  const long long tile0 = (groups - 1 - s) * CLOSE_TILES;
+  if (warp == 0) {
+    const long long tl = tile0 + lane;
+    const long long fb = lane < CLOSE_TILES && tl < n_tiles ? rec[tl] : n;
+    if (lane < CLOSE_TILES) first_s[lane] = fb;
+    // the group's first boundary as a max of n - boundary (0: none)
+    long long v = n - fb;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const long long o = __shfl_xor_sync(FULL, v, d);
+      v = o > v ? o : v;
+    }
+    if (lane == 0) ttk::look_back_publish(words, s, 1, v);
+    const long long after = n - ttk::look_back<ttk::LB_MAX>(words, s, 1, v);
+    __syncwarp();
+    if (lane == 0) {
+      long long next = after;
+      for (int w = CLOSE_TILES - 1; w >= 0; --w) {
+        next_s[w] = next;
+        if (first_s[w] < next) next = first_s[w];
+      }
+    }
+  }
+  __syncthreads();
+  const long long tl = tile0 + warp;
+  if (warp < CLOSE_TILES && tl < n_tiles) {
+    const long long next = next_s[warp];
+    const long long end = (tl + 1) * TILE < n ? (tl + 1) * TILE : n;
+#pragma unroll 4
+    for (long long p = rec[n_tiles + tl] + lane; p < end; p += 32) {
+      const long long cap = pend[p];
+      peer_end[p] = next < cap ? next : cap;
     }
   }
 }
@@ -216,38 +283,59 @@ __global__ void peer_apply(const unsigned char* flag, const long long* pend,
 // original row order: data pointer, validity pointer (0 = none), stride in
 // elements, type (ColType); k may be 0. gid: [n] sorted partition ids;
 // perm: [n] the sort permutation; pend: [n] each sorted row's partition
-// end. Scratch: flag [n] bytes, tile_last, tile_first, tile_cnt
-// (ceil(n / 2048) int64 each). Outputs: peer_start, peer_end [n]; dense
-// [n] or null. Returns cudaGetLastError(), or cudaErrorInvalidValue for k
-// outside [0, MAX_KEYS].
+// end. state: int64 scratch of state_len >= 4 * tiles + groups + 2 +
+// nullable * ceil(n / 64), with tiles = ceil(n / TILE), groups =
+// ceil(tiles / CLOSE_TILES) and nullable the key parts with a validity
+// (the look-back words and counters, reset here, the tiles' records, then
+// a validity bitmap for each nullable part).
+// Outputs: peer_start, peer_end [n]; dense [n] or null. Returns
+// cudaErrorInvalidValue, launching nothing, for k outside [0, MAX_KEYS]
+// or too small a state, else cudaGetLastError().
 extern "C" int window_peers_launch(const long long* desc, long long k,
                                    const void* gid, const void* perm,
-                                   const void* pend, long long n, void* flag,
-                                   void* tile_last, void* tile_first,
-                                   void* tile_cnt, void* peer_start,
+                                   const void* pend, long long n, void* state,
+                                   long long state_len, void* peer_start,
                                    void* peer_end, void* dense, void* stream) {
   if (k < 0 || k > MAX_KEYS) return (int)cudaErrorInvalidValue;
-  Keys keys;
-  keys.k = (int)k;
-  for (int j = 0; j < keys.k; ++j) {
-    keys.data[j] = (const void*)desc[4 * j];
-    keys.valid[j] = (const unsigned char*)desc[4 * j + 1];
-    keys.stride[j] = desc[4 * j + 2];
-    keys.type[j] = (int)desc[4 * j + 3];
+  const long long n_tiles = n > 0 ? (n + TILE - 1) / TILE : 0;
+  const long long groups = (n_tiles + CLOSE_TILES - 1) / CLOSE_TILES;
+  const long long reset = 2 * n_tiles + groups + 2;
+  const long long bitmap = n > 0 ? (n + 63) / 64 : 0;  // int64 words a bitmap
+  int nullable = 0;
+  for (int j = 0; j < k; ++j) nullable += desc[4 * j + 1] != 0;
+  if (state_len < reset + 2 * n_tiles + nullable * bitmap) {
+    return (int)cudaErrorInvalidValue;
   }
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const long long tiles = (n + TILE - 1) / TILE;
-  peer_flags<<<(unsigned int)tiles, THREADS, 0, s>>>(
-      keys, (const long long*)gid, (const long long*)perm, n,
-      (unsigned char*)flag, (long long*)tile_last, (long long*)tile_first,
-      (long long*)tile_cnt);
-  peer_carries<<<1, THREADS, 0, s>>>((long long*)tile_last, (long long*)tile_first,
-                                     (long long*)tile_cnt, tiles, n);
-  peer_apply<<<(unsigned int)tiles, THREADS, 0, s>>>(
-      (const unsigned char*)flag, (const long long*)pend,
-      (const long long*)tile_last, (const long long*)tile_first,
-      (const long long*)tile_cnt, n, (long long*)peer_start,
-      (long long*)peer_end, (long long*)dense);
+  Keys keys;
+  keys.k = (int)k;
+  unsigned int* bits = (unsigned int*)((long long*)state + reset + 2 * n_tiles);
+  const unsigned int pack_blocks = ttk::blocks_for(n + 3, (int)ttk::PACK_BLOCK);
+  for (int j = 0; j < keys.k; ++j) {
+    keys.data[j] = (const void*)desc[4 * j];
+    keys.valid[j] = nullptr;
+    const unsigned char* valid = (const unsigned char*)desc[4 * j + 1];
+    if (valid != nullptr) {
+      pack_valid<<<pack_blocks, THREADS, 0, s>>>(valid, n, bits);
+      keys.valid[j] = bits;
+      bits += 2 * bitmap;
+    }
+    keys.stride[j] = desc[4 * j + 2];
+    keys.type[j] = (int)desc[4 * j + 3];
+  }
+  u64* words = (u64*)state;
+  u64* close_words = words + 2 * n_tiles;
+  unsigned int* next_tile = (unsigned int*)(close_words + groups);
+  unsigned int* next_group = (unsigned int*)(close_words + groups + 1);
+  long long* rec = (long long*)state + reset;
+  cudaMemsetAsync(state, 0, (size_t)reset * sizeof(u64), s);
+  peers<<<(unsigned int)n_tiles, THREADS, 0, s>>>(
+      keys, (const long long*)gid, (const long long*)perm,
+      (const long long*)pend, n, n_tiles, words, next_tile, rec,
+      (long long*)peer_start, (long long*)peer_end, (long long*)dense);
+  close_open<<<(unsigned int)groups, THREADS, 0, s>>>(
+      (const long long*)pend, n, n_tiles, rec, close_words, next_group,
+      (long long*)peer_end);
   return (int)cudaGetLastError();
 }

@@ -1204,6 +1204,13 @@ def window_peers_plain(gid_sorted, keys, perm, pend, with_dense: bool = False):
     return peer_start, peer_end, (count if with_dense else None)
 
 
+#: rows a tile of W1's look-back pass, and tiles a block of its close pass
+#: (TILE and CLOSE_TILES in csrc/window_peers.cu): they size its scratch,
+#: whose length the kernel checks against its own constants
+PEERS_TILE = 2048
+PEERS_CLOSE_TILES = 8
+
+
 def window_peers(gid_sorted, keys, perm, pend, with_dense: bool = False):
     """W1 wrapper: (peer_start, peer_end, dense) of a window's sorted rows
     (see ``window_peers_plain``); plain version on the CPU, CUDA kernel
@@ -1221,18 +1228,20 @@ def window_peers(gid_sorted, keys, perm, pend, with_dense: bool = False):
     rows = [_col_desc(f"window_peers[{i}]", d, v, n) for i, (d, v) in enumerate(keys)]
     desc = _host_table(rows) if rows else torch.zeros((1, 4), dtype=I64)
     dev = gid_sorted.device
-    tiles = max((n + 2047) // 2048, 1)
-    flag = torch.empty(n, dtype=torch.uint8, device=dev)
-    tile_last, tile_first, tile_cnt = (
-        torch.empty(tiles, dtype=I64, device=dev) for _ in range(3)
-    )
+    # look-back words (two a tile), the close pass's words (one a group of
+    # PEERS_CLOSE_TILES tiles), two counters, two records a tile, then a
+    # validity bitmap for each nullable part
+    tiles = -(-n // PEERS_TILE)
+    groups = -(-tiles // PEERS_CLOSE_TILES)
+    nullable = sum(v is not None for _, v in keys)
+    state = torch.empty(4 * tiles + groups + 2 + nullable * -(-n // 64),
+                        dtype=I64, device=dev)
     peer_start = torch.empty(n, dtype=I64, device=dev)
     peer_end = torch.empty(n, dtype=I64, device=dev)
     dense = torch.empty(n, dtype=I64, device=dev) if with_dense else None
     native.call(
         "window_peers", "window_peers_launch", desc, len(rows), gid_sorted,
-        perm, pend, n, flag, tile_last, tile_first, tile_cnt, peer_start,
-        peer_end, dense,
+        perm, pend, n, state, state.shape[0], peer_start, peer_end, dense,
     )
     window_peers.launches += 1
     return peer_start, peer_end, dense
@@ -1497,6 +1506,11 @@ def seg_arg_extreme_plain(keys: torch.Tensor, contrib: torch.Tensor,
     return perm[at.clamp(0, max(n - 1, 0))]
 
 
+#: sorted positions a tile of A3's pass (TILE in csrc/seg_arg_extreme.cu):
+#: it sizes the carries, whose length the kernel checks
+ARG_TILE = 2048
+
+
 def seg_arg_extreme(keys: torch.Tensor, contrib: torch.Tensor, info: GroupInfo,
                     is_min: bool) -> torch.Tensor:
     """A3 wrapper: the original row of each group's key-extremal
@@ -1518,11 +1532,15 @@ def seg_arg_extreme(keys: torch.Tensor, contrib: torch.Tensor, info: GroupInfo,
     cap = starts.shape[0]
     _check("seg_arg_extreme.starts", starts, I64, cap)
     _check("seg_arg_extreme.ends", ends, I64, cap)
-    best = torch.empty(cap, dtype=I64, device=perm.device)
+    # five carries a tile (its first and last groups' key and position,
+    # the group it closes), then contrib as a bitmap
+    state = torch.empty(5 * -(-n // ARG_TILE) + -(-n // 64), dtype=I64,
+                        device=perm.device)
     out = torch.empty(cap, dtype=I64, device=perm.device)
     native.call(
         "seg_arg_extreme", "seg_arg_extreme_launch", keys, code, contrib,
-        perm, starts, ends, n, cap, int(bool(is_min)), best, out,
+        perm, starts, ends, n, cap, int(bool(is_min)), state, state.shape[0],
+        out,
     )
     seg_arg_extreme.launches += 1
     return out
